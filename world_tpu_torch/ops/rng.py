@@ -1,0 +1,145 @@
+"""Deterministic RNG matching the reference, plus fast-mode normals.
+
+The reference uses xorshift128 with a fixed seed, summing 12 draws of
+(w >> 4) to approximate N(0,1) (reference src/matlabfunctions.cpp:237-264),
+and consumes that one stream sequentially across data-dependent block
+sizes (one block per frame / per pulse).  The state update is linear
+over GF(2), so jumping k draws ahead is a 128x128 bit-matrix power:
+``states_at_draws`` lands any number of stream positions in parallel.
+
+On the GPU the jump is a float32 matmul of 0/1 values (every sum is at
+most 128, so exact) with TF32 off, then ``% 2``.  xorshift words are
+carried in int64 masked to 32 bits (torch.uint32 has few operators).
+
+Fast mode draws normals from an explicit ``torch.Generator``; a torch
+generator cannot reproduce jax.random sample for sample, so fast-mode
+results are held to envelope gates, not to the JAX output.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+SEED = (123456789, 362436069, 521288629, 88675123)
+_MASK = 0xFFFFFFFF
+# Draws per parallel lane when a whole span of the stream is generated.
+_LANE = 64
+
+
+def _state_step_bits(bits):
+    """One state update acting on a 128-bit boolean vector (numpy)."""
+    x = bits[0:32]
+    y = bits[32:64]
+    z = bits[64:96]
+    w = bits[96:128]
+    # t = x ^ (x << 11): bit i of t = x[i] ^ x[i-11]
+    t = x.copy()
+    t[11:] ^= x[:-11]
+    # w' = (w ^ (w>>19)) ^ (t ^ (t>>8))
+    wn = w.copy()
+    wn[:-19] ^= w[19:]
+    wn ^= t
+    wn[:-8] ^= t[8:]
+    out = np.empty(128, np.uint8)
+    out[0:32] = y
+    out[32:64] = z
+    out[64:96] = w
+    out[96:128] = wn
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _jump_matrices(max_log2=34):
+    """M_draw^(2^b) for b in 0..max_log2-1, where M_draw = 12 state steps.
+    (max_log2, 128, 128) uint8; next_bits = (bits @ M.T) & 1."""
+    eye = np.eye(128, dtype=np.uint8)
+    m_step = np.stack([_state_step_bits(eye[i]) for i in range(128)], axis=1)
+
+    def matmul2(a, b):
+        return (a.astype(np.int32) @ b.astype(np.int32) & 1).astype(np.uint8)
+
+    m_draw = eye
+    for _ in range(12):
+        m_draw = matmul2(m_step, m_draw)
+    mats = np.empty((max_log2, 128, 128), np.uint8)
+    mats[0] = m_draw
+    for b in range(1, max_log2):
+        mats[b] = matmul2(mats[b - 1], mats[b - 1])
+    return mats
+
+
+def _seed_bits():
+    bits = np.zeros(128, np.float32)
+    for word, val in enumerate(SEED):
+        for b in range(32):
+            bits[word * 32 + b] = (val >> b) & 1
+    return bits
+
+
+def states_at_draws(offsets):
+    """States (int64 (..., 4) holding uint32 words) positioned just before
+    draw number ``offsets`` (0 = fresh seed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = offsets.device
+    offsets = offsets.to(torch.int64)
+    n_bits = max(1, int(offsets.max()).bit_length()) if offsets.numel() else 1
+    mats = torch.as_tensor(_jump_matrices()[:n_bits], dtype=torch.float32,
+                           device=dev)
+    bits = torch.as_tensor(_seed_bits(), device=dev).expand(
+        offsets.shape + (128,))
+    for b in range(n_bits):
+        take = ((offsets >> b) & 1).bool().unsqueeze(-1)
+        jumped = torch.remainder(bits @ mats[b].T, 2.0)
+        bits = torch.where(take, jumped, bits)
+    weights = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
+        32, device=dev)
+    return (bits.reshape(offsets.shape + (4, 32)).to(torch.int64)
+            * weights).sum(-1)
+
+
+def randn_block(state, n):
+    """Draw ``n`` normals sequentially from ``state`` (int64 (..., 4)).
+    Matches reference randn() (src/matlabfunctions.cpp:244-264).
+    Returns float64 (..., n)."""
+    x, y, z, w = state.unbind(-1)
+    draws = []
+    for _ in range(n):
+        acc = torch.zeros_like(x)
+        for _ in range(12):
+            t = (x ^ (x << 11)) & _MASK
+            x, y, z, w = y, z, w, (w ^ (w >> 19)) ^ (t ^ (t >> 8))
+            acc = acc + (w >> 4)
+        draws.append(acc.to(torch.float64) / 268435456.0 - 6.0)
+    return torch.stack(draws, -1)
+
+
+def randn_blocks_at(offsets, n):
+    """For each stream position in ``offsets`` (int (...)), the n draws
+    starting there: float64 (..., n).
+
+    The span [min, max + n) of the stream is generated once, in lanes of
+    _LANE draws that each start from a GF(2) jump, and every block is a
+    window of that span."""
+    dev = offsets.device
+    flat = offsets.reshape(-1).to(torch.int64)
+    lo = int(flat.min())
+    total = int(flat.max()) + n - lo
+    n_lanes = -(-total // _LANE)
+    starts = lo + torch.arange(n_lanes, device=dev) * _LANE
+    seq = randn_block(states_at_draws(starts), _LANE).reshape(-1)
+    idx = (flat - lo).unsqueeze(-1) + torch.arange(n, device=dev)
+    return seq[idx].reshape(offsets.shape + (n,))
+
+
+def randn_sequence(n, device="cpu"):
+    """First n draws after a reseed."""
+    return randn_blocks_at(torch.zeros(1, dtype=torch.int64,
+                                       device=device), n)[0]
+
+
+def fast_normal(seed, shape, dtype, device):
+    """Fast-mode normals from an explicit generator seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device)
