@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each, in this order:
   device    torch version, card name, nvidia-smi name and power limit
   build     nvcc builds of every csrc/*.cu kernel, started together
-  kernels   each kernel against its plain PyTorch version on the card
-            (max abs diff must be 0) at the main path's nominal shapes,
-            with kernel / plain / library times and the bound (the larger
-            of bytes over the memory rate and adds over the peak rate)
   window_starts  fs-derived window positions on the card == on the CPU
   main_22k  make_batch_step(22050, ...) at batch 16 in float32 fast mode,
             gated against the C++ goldens; launches of every kernel
+            (the ragged mode must have launched)
   main_48k  the same at 48 kHz (fft 2048)
-  kernels_at_path  each kernel against its plain version at the shapes
-            the two main-path runs gave it
+  kernels   the overlap-add kernel in both modes (general: padded
+            (B, P, fft) with offsets in any order; ragged: real pulses
+            with CSR rows and ascending offsets) against its plain
+            PyTorch version on the card (torch.equal, max abs diff 0) at
+            the shapes of PERF.md's table, float32 and float64, with
+            device-only times (torch.profiler, inputs warm in L2 and after
+            an L2 flush), host us per call, CUDA-event times, the plain
+            and index_add times and the bound from the real pulses'
+            bytes (world_tpu_torch/tools/ola_bench.py)
+  kernels_at_path  both modes on the offsets and row_ptr the two
+            main-path runs gave the ragged kernel
 Then the kernels summary line, the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -24,7 +30,6 @@ without the repository around it, it exits non-zero at once.
 
 import concurrent.futures
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -32,9 +37,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-# H100 SXM peak operations per second outside the tensor cores.
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 BATCH = 16
 
 
@@ -56,72 +58,6 @@ def load_goldens(name):
     def get(key):
         return np.fromfile(d / f"{key}.f64").reshape(shapes[key])
     return get, scalars
-
-
-def nvidia_smi():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return proc.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(torch, fn, reps, warm=1):
-    """Mean milliseconds per call from CUDA events around ``reps`` calls."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def ola_case(torch, ola, B, P, fft, y_padded, dtype, seed, sort_offsets):
-    """Kernel vs plain version on the card for one shape; times both and
-    the one-call library yardstick (index_add over the flat targets)."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    resp = torch.randn((B, P, fft), generator=gen, dtype=dtype,
-                       device="cuda")
-    offs = torch.randint(0, y_padded - fft + 1, (B, P), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    if sort_offsets:
-        offs = torch.sort(offs, 1).values.contiguous()
-    got = ola.ola_accumulate(resp, offs, y_padded=y_padded)
-    want = ola.ola_plain(resp, offs, y_padded)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    targets = (torch.arange(B, device="cuda")[:, None, None] * y_padded
-               + offs[..., None].long()
-               + torch.arange(fft, device="cuda")).reshape(-1)
-    zeros = torch.zeros(B * y_padded, dtype=dtype, device="cuda")
-    flat = resp.reshape(-1)
-    lib = torch.index_add(zeros, 0, targets, flat).reshape(B, y_padded)
-    lib_err = float((lib - want).abs().max())
-    nbytes = (resp.numel() * resp.element_size() + offs.numel() * 4
-              + B * y_padded * resp.element_size())
-    name = str(dtype).split(".")[-1]
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = resp.numel() / PEAK_OPS_PER_S[name] * 1e3   # one add each
-    return {
-        "shape": [B, P, fft, y_padded], "dtype": name,
-        "sorted_offsets": sort_offsets, "max_abs_err": err,
-        "index_add_max_abs_err": lib_err,
-        "ms": cuda_ms(torch, lambda: ola.ola_accumulate(
-            resp, offs, y_padded=y_padded), 20),
-        "plain_ms": cuda_ms(torch, lambda: ola.ola_plain(
-            resp, offs, y_padded), 3),
-        "library_ms": cuda_ms(torch, lambda: torch.index_add(
-            zeros, 0, targets, flat), 20),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bytes": nbytes,
-    }
 
 
 def envelope_db(y, ref):
@@ -169,7 +105,13 @@ def window_starts(torch, get, fs):
     check(all(same), f"window starts differ between card and CPU: {same}")
 
 
-def main_path(torch, W, ola, kernels, get, scalars, tag, card):
+def main_path(torch, W, ola, get, scalars, tag, card):
+    """Batch-16 step on the card, gated against the goldens.  The
+    warm-up step records the ragged overlap-add's real inputs for
+    kernels_at_path; the counts are then set to 0 and read after the
+    timed steps."""
+    from world_tpu_torch.models import synthesis
+
     fs = scalars["fs"]
     x = get("x").astype(np.float32)
     duration = len(x) / fs
@@ -182,10 +124,22 @@ def main_path(torch, W, ola, kernels, get, scalars, tag, card):
 
     step = W.make_batch_step(fs, len(x), rng_mode="fast",
                              f0_method="harvest", device="cuda")
-    for k in kernels:
-        k.launches = 0
-    step(fresh())                                   # warm-up
+    real = synthesis.ola_accumulate_ragged
+    recorded = {}
+
+    def record(responses, offsets, row_ptr, *, y_padded):
+        recorded.update(inputs=(responses, offsets, row_ptr),
+                        y_padded=y_padded)
+        return real(responses, offsets, row_ptr, y_padded=y_padded)
+
+    synthesis.ola_accumulate_ragged = record
+    try:
+        step(fresh())                               # warm-up
+    finally:
+        synthesis.ola_accumulate_ragged = real
     torch.cuda.synchronize()
+    for k in all_kernels(ola):
+        k.launches = 0
     times, stages = [], []
     for _ in range(5):
         xb = fresh()
@@ -194,8 +148,7 @@ def main_path(torch, W, ola, kernels, get, scalars, tag, card):
         f0, sp, ap, y = step(xb)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = {k.__name__: k.launches for k in kernels}
-    shape = ola.ola_accumulate.last_shape
+    launches = {k.__name__: k.launches for k in all_kernels(ola)}
     for _ in range(3):
         tm = {}
         step(fresh(), timings=tm)
@@ -220,7 +173,8 @@ def main_path(torch, W, ola, kernels, get, scalars, tag, card):
         "step_ms_median": step_s * 1e3,
         "step_ms_all": [t * 1e3 for t in times],
         "rtf": BATCH * duration / step_s, "stage_ms": stage_ms,
-        "launches": launches, "ola_shape": list(shape),
+        "launches": launches,
+        "ola_ragged_shape": list(ola.ola_accumulate_ragged.last_shape),
         "vuv_agreement": vuv, "cents_rms": cents, "sp_median_db": sp_db,
         "envelope_median_db": float(np.median(env)),
         "envelope_max_db": float(env.max()),
@@ -235,9 +189,27 @@ def main_path(torch, W, ola, kernels, get, scalars, tag, card):
     check(cents < 0.1, f"{tag}: {cents} cents RMS")
     check(sp_db < 0.01, f"{tag}: sp median {sp_db} dB")
     check(np.median(env) < 0.5, f"{tag}: envelope median {np.median(env)}")
-    for name, n in launches.items():
-        check(n > 0, f"{tag}: kernel {name} never launched on the main path")
-    return result
+    for k in path_kernels(ola):
+        check(launches[k.__name__] > 0,
+              f"{tag}: kernel {k.__name__} never launched on the main path")
+    return result, recorded
+
+
+def all_kernels(ola):
+    """Every kernel wrapper of the port (each counts its launches)."""
+    return [ola.ola_accumulate, ola.ola_accumulate_ragged]
+
+
+def path_kernels(ola):
+    """The wrappers the main path must launch: batch synthesis calls the
+    ragged mode; the general mode's caller (streaming) is not ported."""
+    return [ola.ola_accumulate_ragged]
+
+
+def check_cases(cases, what):
+    for c in cases:
+        check(c["equal"] and c["max_abs_err"] == 0.0,
+              f"{what}: kernel != plain: {c}")
 
 
 def main():
@@ -254,10 +226,11 @@ def main():
     sys.path.insert(0, str(ROOT))
     import world_tpu_torch as W
     from world_tpu_torch.ops import _cuda, ola
+    from world_tpu_torch.tools import ola_bench as bench
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi()
+    card = bench.card_name()
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
          name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=card)
@@ -270,46 +243,68 @@ def main():
          ptxas={k: [ln for ln in (v[1] or "").splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()})
-    kernels = [ola.ola_accumulate]
-
-    cases = []
-    for dtype in (torch.float32, torch.float64):
-        cases.append(ola_case(torch, ola, BATCH, 1249, 1024, 19468, dtype,
-                              1, False))
-        cases.append(ola_case(torch, ola, BATCH, 1114, 2048, 37697, dtype,
-                              2, False))
-        cases.append(ola_case(torch, ola, BATCH, 300, 512, 8000, dtype, 3,
-                              False))
-    emit("kernels", card=card, ola_accumulate=cases)
-    for c in cases:
-        check(c["max_abs_err"] == 0.0, f"ola kernel != plain: {c}")
 
     window_starts(torch, load_goldens("goldens")[0], 22050)
 
-    runs = {}
+    runs, replays = {}, {}
     for tag, gold in (("main_22k", "goldens"), ("main_48k", "goldens_fs48")):
         get, scalars = load_goldens(gold)
-        runs[tag] = main_path(torch, W, ola, kernels, get, scalars, tag, card)
+        runs[tag], replays[tag] = main_path(torch, W, ola, get, scalars, tag,
+                                            card)
 
-    # Each kernel at the shapes the main path gave it; the kernels line
-    # reports the 22.05 kHz one.
-    at_paths = {tag: ola_case(torch, ola, *r["ola_shape"], torch.float32,
-                              4, True) for tag, r in runs.items()}
-    emit("kernels_at_path", card=card, ola_accumulate=at_paths)
-    for c in at_paths.values():
-        check(c["max_abs_err"] == 0.0, f"ola kernel != plain: {c}")
-    at_path = at_paths["main_22k"]
-    print(json.dumps({"kernels": [{
-        "name": "ola_accumulate", "route": "cuda",
-        "source": "world_tpu_torch/csrc/ola.cu",
-        "replaces": "world_tpu/ops/pallas_ola.py:33",
-        "launches": sum(r["launches"]["ola_accumulate"]
-                        for r in runs.values()),
-        "max_abs_err": at_path["max_abs_err"], "ms": at_path["ms"],
-        "plain_ms": at_path["plain_ms"], "bound_ms": at_path["bound_ms"],
-        "bound_by": at_path["bound_by"],
-        "library_ms": at_path["library_ms"],
-        "shape": at_path["shape"]}]}), flush=True)
+    # Kernel timing (torch.profiler) comes after the main-path steps, so
+    # that the steps' host-bound times see no profiler state.  Both modes
+    # at the shapes of PERF.md's table, float32 and float64:
+    # general with the table's offsets (unsorted at capacity and fft
+    # 512), ragged with the same offsets sorted per row.
+    flush = bench.l2_flush(torch)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for seed, (B, P, fft, yp, srt) in enumerate(bench.TABLE):
+            resp, offs = bench.random_inputs(torch, B, P, fft, yp, dtype,
+                                             seed, srt)
+            cases.append(bench.measure(torch, ola, "general", (resp, offs),
+                                       yp, flush))
+            soffs = torch.sort(offs, 1).values.contiguous()
+            cases.append(bench.measure(torch, ola, "ragged",
+                                       bench.to_ragged(torch, resp, soffs),
+                                       yp, flush))
+    emit("kernels", card=card, ola=cases)
+    check_cases(cases, "kernels")
+
+
+    # Both modes on the inputs the main path's ragged call received (the
+    # general mode on their padded layout); the kernels line reports the
+    # 22.05 kHz ones.
+    at_paths = {}
+    for tag, rec in replays.items():
+        inputs, yp = rec["inputs"], rec["y_padded"]
+        at_paths[tag] = {
+            "ragged": bench.measure(torch, ola, "ragged", inputs, yp, flush),
+            "general": bench.measure(torch, ola, "general",
+                                     bench.to_padded(torch, *inputs), yp,
+                                     flush)}
+    emit("kernels_at_path", card=card, ola=at_paths)
+    check_cases([c for v in at_paths.values() for c in v.values()],
+                "kernels_at_path")
+
+    def line(name, c, on_path):
+        return {
+            "name": name, "route": "cuda",
+            "source": "world_tpu_torch/csrc/ola.cu",
+            "replaces": "world_tpu/ops/pallas_ola.py:33",
+            "launches": sum(r["launches"][name] for r in runs.values()),
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "device_ms": c["device_ms"], "host_us": c["host_us"],
+            "library_device_ms": c["library_device_ms"],
+            "shape": c["shape"], "on_main_path": on_path}
+
+    at_22k = at_paths["main_22k"]
+    print(json.dumps({"kernels": [
+        line("ola_accumulate_ragged", at_22k["ragged"], True),
+        line("ola_accumulate", at_22k["general"], False)]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Tests of the port that need a CUDA card: the OLA kernel against its
-plain version, IEEE division by fs on the card, and the batched step
-through the kernel.  Each skips without a card.
+"""Tests of the port that need a CUDA card: the OLA kernel in both
+modes, at every tile, against its plain versions (torch.equal), IEEE
+division by fs on the card, and the batched step through the kernel.
+Each skips without a card.
 
 This file imports neither jax nor the JAX package and reads the goldens
 itself, so it also runs where JAX is not installed:
@@ -17,8 +18,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from world_tpu_torch.device import div  # noqa: E402
+from world_tpu_torch.ops import ola  # noqa: E402
 from world_tpu_torch.ops.ola import ola_accumulate, ola_plain  # noqa: E402
 from world_tpu_torch.parallel import pipeline  # noqa: E402
+from world_tpu_torch.tools.ola_bench import TABLE  # noqa: E402
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 
@@ -60,6 +63,92 @@ def test_ola_kernel_matches_plain(cuda, dtype):
         assert torch.equal(got, ola_plain(r, o, yp))
 
 
+def _ragged(gen, counts, fft, yp, dt, cuda):
+    """Random ragged inputs with the given pulse count per row and
+    ascending offsets within each row."""
+    counts = torch.as_tensor(counts)
+    row_ptr = torch.zeros(len(counts) + 1, dtype=torch.int32)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    n = int(row_ptr[-1])
+    r = torch.randn((n, fft), generator=gen, dtype=dt, device=cuda)
+    o = torch.randint(0, yp - fft + 1, (n,), generator=gen,
+                      dtype=torch.int32, device=cuda)
+    rows = torch.repeat_interleave(torch.arange(len(counts)), counts)
+    key = rows.to(cuda) * yp + o.long()
+    return r, o[torch.argsort(key)].contiguous(), row_ptr.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ola_ragged_kernel_matches_plain(cuda, dtype):
+    """The ragged mode == its plain version at the table's shapes, rows
+    holding 0 to P pulses; the counter counts."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    for B, P, fft, yp, _ in TABLE:
+        counts = torch.linspace(0, P, B).round().long()
+        r, o, rp = _ragged(gen, counts, fft, yp, dt, cuda)
+        before = ola.ola_accumulate_ragged.launches
+        got = ola.ola_accumulate_ragged(r, o, rp, y_padded=yp)
+        assert ola.ola_accumulate_ragged.launches == before + 1
+        assert torch.equal(got, ola.ola_ragged_plain(r, o, rp, yp))
+
+
+def _edge_offsets(fft, yp, tile):
+    """Offsets that straddle tile edges, leave whole tiles empty, sit at
+    0 and at yp - fft, and repeat the same sample."""
+    edges = [k * tile + d for k in (1, 2) for d in (-fft, -fft + 1, -1, 0,
+                                                    1, -fft // 2)]
+    return sorted([0, 0, yp - fft, yp - fft] + [e for e in edges
+                                                 if 0 <= e <= yp - fft])
+
+
+@pytest.mark.parametrize("tile", ola.TILES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ola_every_tile_at_edges(cuda, dtype, tile):
+    """Both modes at every tile the kernel has: pulses straddling tile
+    edges, tiles with an empty pulse range (the middle of a long row),
+    rows with no pulse, unsorted offsets in the general mode."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(tile)
+    for fft in (512, 1024, 2048):
+        yp = 12 * 2048 + 333
+        edge = torch.tensor(_edge_offsets(fft, yp, tile), dtype=torch.int32)
+        rows = [edge, edge[:1], edge[:0], torch.tensor(
+            [yp // 2 - 7] * 3, dtype=torch.int32)]
+        counts = [len(x) for x in rows]
+        row_ptr = torch.tensor([0] + list(np.cumsum(counts)),
+                               dtype=torch.int32, device=cuda)
+        o = torch.cat(rows).to(cuda)
+        r = torch.randn((len(o), fft), generator=gen, dtype=dt, device=cuda)
+        B, N = len(rows), len(o)
+        out = torch.empty((B, yp), dtype=dt, device=cuda)
+        ola.launch(r, o, row_ptr, out, B, N, fft, yp, tile=tile)
+        assert torch.equal(out, ola.ola_ragged_plain(r, o, row_ptr, yp))
+        # General mode: the same pulses padded, shuffled within each row.
+        P = max(counts)
+        pr = torch.zeros((B, P, fft), dtype=dt, device=cuda)
+        po = torch.zeros((B, P), dtype=torch.int32, device=cuda)
+        for b in range(B):
+            a, z = int(row_ptr[b]), int(row_ptr[b + 1])
+            perm = torch.randperm(z - a, generator=gen, device=cuda)
+            pr[b, :z - a] = r[a:z][perm]
+            po[b, :z - a] = o[a:z][perm]
+        out = torch.empty((B, yp), dtype=dt, device=cuda)
+        ola.launch(pr, po, None, out, B, P, fft, yp, tile=tile)
+        assert torch.equal(out, ola_plain(pr, po, yp))
+
+
+def test_ola_unknown_tile_raises(cuda):
+    r = torch.zeros((4, 512), device=cuda)
+    o = torch.zeros(4, dtype=torch.int32, device=cuda)
+    rp = torch.tensor([0, 4], dtype=torch.int32, device=cuda)
+    out = torch.empty((1, 1000), device=cuda)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ola.launch(r, o, rp, out, 1, 4, 512, 1000, tile=333)
+
+
 def test_div_on_card_matches_cpu(cuda):
     """On the card, division by a Python scalar is a reciprocal multiply;
     device.div must still give the CPU's IEEE quotients."""
@@ -70,14 +159,14 @@ def test_div_on_card_matches_cpu(cuda):
 
 def test_batch_step_on_card(cuda):
     """The float32 fast step on the card at batch 2 meets the golden F0
-    and envelope gates and goes through the OLA kernel once."""
+    and envelope gates and goes through the ragged OLA kernel once."""
     x = golden("x").astype(np.float32)
     ref = golden("harvest_f0")
     step = pipeline.make_batch_step(22050, len(x), rng_mode="fast",
                                     device=cuda)
-    before = ola_accumulate.launches
+    before = ola.ola_accumulate_ragged.launches
     f0, sp, _, _ = step(np.stack([x, 0.7 * x]))
-    assert ola_accumulate.launches == before + 1
+    assert ola.ola_accumulate_ragged.launches == before + 1
     f0 = f0[0].double().cpu().numpy()
     assert ((f0 > 0) == (ref > 0)).mean() > 0.99
     v = (f0 > 0) & (ref > 0)

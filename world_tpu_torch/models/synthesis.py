@@ -3,8 +3,9 @@
 A pulse train is derived from the F0 contour (per-sample phase
 accumulation; a pulse wherever the wrapped phase jumps by more than pi).
 For each pulse a minimum-phase periodic response plus a noise-excited
-aperiodic response is rendered, and the responses are overlap-added by
-the port's CUDA kernel (ops/ola.py) for both dtypes.
+aperiodic response is rendered, and the responses of the real pulses
+are overlap-added by the port's CUDA kernel in its ragged mode
+(ops/ola.py) for both dtypes.
 
 Where the JAX package compacts pulses with a keyed sort into a
 fixed-capacity array and renders capacity-sized chunks, the port takes
@@ -20,7 +21,7 @@ from ..ops import fftpack
 from ..ops import rng as rng_ops
 from ..ops.common import minimum_phase_spectrum
 from ..ops.matlab import fftshift, interp1
-from ..ops.ola import ola_accumulate
+from ..ops.ola import ola_accumulate_ragged
 
 # Pulses rendered per chunk are bounded so (pulses x fft_size) stays
 # below this many elements per intermediate.
@@ -138,20 +139,19 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
 
     is_pulse, shift_all, vuv_all = _time_base(f0, fs_t, frame_period_s,
                                               y_length, lowest_f0)
-    n_pulses = is_pulse.sum(1)
     rows, samples = is_pulse.nonzero(as_tuple=True)   # row-major, ascending
-    P = int(n_pulses.max()) if B else 0
-    slot = torch.arange(P, device=dev)
-    valid = slot[None, :] < n_pulses[:, None]
-    safe = torch.zeros((B, P), dtype=torch.int64, device=dev)
-    safe[valid] = samples
-    nxt = torch.where(slot[None, :] + 1 < n_pulses[:, None],
-                      torch.roll(safe, -1, 1), safe)
-    noise_size = torch.where(valid, nxt - safe, torch.zeros_like(safe))
+    row_ptr = torch.nn.functional.pad(torch.cumsum(is_pulse.sum(1), 0),
+                                      (1, 0))
+    # Noise length: up to the row's next pulse, 0 for its last pulse.
+    same_row = rows[1:] == rows[:-1]
+    ns = torch.zeros_like(samples)
+    ns[:-1] = torch.where(same_row, samples[1:] - samples[:-1], 0)
 
     if rng_mode == "exact":
-        offsets = torch.cumsum(noise_size, 1) - noise_size
-        noise = rng_ops.randn_blocks_at(offsets[valid], fft_size).to(dtype)
+        # Each row's noise stream starts at 0: exclusive cumsum per row.
+        start = torch.cumsum(ns, 0) - ns
+        noise = rng_ops.randn_blocks_at(start - start[row_ptr[rows]],
+                                        fft_size).to(dtype)
     elif rng_mode == "fast":
         noise = rng_ops.fast_normal(3, (samples.shape[0], fft_size), dtype,
                                     dev)
@@ -167,9 +167,7 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
     current_time = samples.to(dtype) / fs_t
     vuv = vuv_all[rows, samples]
     shift = shift_all[rows, samples]
-    ns = noise_size[valid]
 
-    responses = torch.zeros((B, P, fft_size), dtype=dtype, device=dev)
     n = samples.shape[0]
     chunk = max(1, _RENDER_ELEMENTS // fft_size)
     rendered = [
@@ -177,17 +175,22 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
                 vuv[a:a + chunk], shift[a:a + chunk], noise[a:a + chunk],
                 ns[a:a + chunk], fs_t, fft_size, frame_period_s, dc_rem)
         for a in range(0, n, chunk)]
-    if rendered:
-        responses[valid] = torch.cat(rendered)
+    if len(rendered) == 1:
+        responses = rendered[0]
+    elif rendered:
+        responses = torch.cat(rendered)
+    else:
+        responses = torch.zeros((0, fft_size), dtype=dtype, device=dev)
 
     # OLA with out-of-range drop (src/synthesis.cpp:370-386): offsets
     # >= -(fft_size-1) land in a left pad, so clamping never engages and
-    # the slice below drops what falls outside [0, y_length).
+    # the slice below drops what falls outside [0, y_length).  Offsets
+    # ascend within each row, as the ragged kernel requires.
     pad_l = fft_size
     y_padded = y_length + 2 * fft_size
-    offs = (safe - fft_size // 2 + 1 + pad_l).clamp(0, y_padded - fft_size)
-    y = ola_accumulate(responses, offs.to(torch.int32).contiguous(),
-                       y_padded=y_padded)
+    offs = (samples - fft_size // 2 + 1 + pad_l).clamp(0, y_padded - fft_size)
+    y = ola_accumulate_ragged(responses, offs.to(torch.int32),
+                              row_ptr.to(torch.int32), y_padded=y_padded)
     return y[:, pad_l:pad_l + y_length]
 
 
