@@ -7,10 +7,21 @@ Phases, one JSON line each, in this order:
   device    torch version, card name, nvidia-smi name and power limit
   build     nvcc builds of every csrc/*.cu kernel, started together
   window_starts  fs-derived window positions on the card == on the CPU
-  main_22k  make_batch_step(22050, ...) at batch 16 in float32 fast mode,
-            gated against the C++ goldens; launches of every kernel
-            (the ragged mode must have launched)
+  main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
+            in float32 fast mode, gated against the C++ goldens;
+            launches of every kernel (the ragged mode must have launched)
   main_48k  the same at 48 kHz (fft 2048)
+  dio_22k   the JAX package's default step, make_batch_step(22050, ...,
+            f0_method="dio", codec_dims=64): Dio -> StoneMask ->
+            CheapTrick -> D4C -> codec -> Synthesis at batch 16, float32
+            fast mode; F0 gated against the golden StoneMask track, coded
+            sp/ap against the codec of a full step, ragged kernel launched
+  dio_48k   the same at 48 kHz
+  dio_vs_cpu  row 0 of dio_22k's batch, rng_mode "none", on the card
+            against the same step on the CPU
+  dio_exact float64 Dio and StoneMask on the card against the goldens
+  codec_exact  the four codec functions, float64, on the card against
+            the goldens
   kernels   the overlap-add kernel in both modes (general: padded
             (B, P, fft) with offsets in any order; ragged: real pulses
             with CSR rows and ascending offsets) against its plain
@@ -20,9 +31,10 @@ Phases, one JSON line each, in this order:
             an L2 flush), host us per call, CUDA-event times, the plain
             and index_add times and the bound from the real pulses'
             bytes (world_tpu_torch/tools/ola_bench.py)
-  kernels_at_path  both modes on the offsets and row_ptr the two
-            main-path runs gave the ragged kernel
-Then the kernels summary line, the nvidia-smi line, and the final
+  kernels_at_path  both modes on the offsets and row_ptr the four path
+            runs (main_*, dio_*) gave the ragged kernel
+Then the kernels summary line (launches summed over the four path
+runs), the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
 without the repository around it, it exits non-zero at once.
@@ -105,25 +117,14 @@ def window_starts(torch, get, fs):
     check(all(same), f"window starts differ between card and CPU: {same}")
 
 
-def main_path(torch, W, ola, get, scalars, tag, card):
-    """Batch-16 step on the card, gated against the goldens.  The
-    warm-up step records the ragged overlap-add's real inputs for
-    kernels_at_path; the counts are then set to 0 and read after the
-    timed steps."""
+def drive(torch, ola, step, fresh):
+    """One warm-up step that records the ragged overlap-add's real inputs
+    (for kernels_at_path), then the kernel counts set to 0, five timed
+    steps, the counts read, and three stage-timed steps.  Returns (the
+    last timed step's outputs, step seconds, launches, stage ms,
+    recorded inputs)."""
     from world_tpu_torch.models import synthesis
 
-    fs = scalars["fs"]
-    x = get("x").astype(np.float32)
-    duration = len(x) / fs
-    rng = np.random.default_rng(20261016)
-
-    def fresh():
-        gains = np.concatenate([[1.0], 0.5 + rng.random(BATCH - 1)])
-        return torch.as_tensor(x[None, :] * gains[:, None].astype(np.float32),
-                               device="cuda")
-
-    step = W.make_batch_step(fs, len(x), rng_mode="fast",
-                             f0_method="harvest", device="cuda")
     real = synthesis.ola_accumulate_ragged
     recorded = {}
 
@@ -140,30 +141,58 @@ def main_path(torch, W, ola, get, scalars, tag, card):
     torch.cuda.synchronize()
     for k in all_kernels(ola):
         k.launches = 0
-    times, stages = [], []
+    times = []
     for _ in range(5):
         xb = fresh()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        f0, sp, ap, y = step(xb)
+        outs = step(xb)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {k.__name__: k.launches for k in all_kernels(ola)}
+    stages = []
     for _ in range(3):
         tm = {}
         step(fresh(), timings=tm)
         stages.append(tm)
     stage_ms = {s: float(np.median([t[s] for t in stages]))
                 for s in stages[0]}
+    return outs, times, launches, stage_ms, recorded
+
+
+def batch_maker(torch, x, seed=20261016):
+    """Batches of the utterance: row 0 unscaled, rows 1-15 at gains in
+    0.5-1.5 drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def fresh():
+        gains = np.concatenate([[1.0], 0.5 + rng.random(BATCH - 1)])
+        return torch.as_tensor(x[None, :] * gains[:, None].astype(np.float32),
+                               device="cuda")
+    return fresh
+
+
+def f0_stats(f0, ref):
+    """(VUV agreement, cents RMS over frames voiced in both)."""
+    vuv = float(((f0 > 0) == (ref > 0)).mean())
+    v = (f0 > 0) & (ref > 0)
+    return vuv, float(np.sqrt(np.mean((1200 * np.log2(f0[v] / ref[v])) ** 2)))
+
+
+def main_path(torch, W, ola, get, scalars, tag, card):
+    """Batch-16 Harvest step on the card, gated against the goldens."""
+    fs = scalars["fs"]
+    x = get("x").astype(np.float32)
+    duration = len(x) / fs
+    step = W.make_batch_step(fs, len(x), rng_mode="fast",
+                             f0_method="harvest", device="cuda")
+    (f0, sp, ap, y), times, launches, stage_ms, recorded = drive(
+        torch, ola, step, batch_maker(torch, x))
 
     f0_0 = f0[0].double().cpu().numpy()
     sp_0 = sp[0].double().cpu().numpy()
     y_np = y.double().cpu().numpy()
-    ref_f0 = get("harvest_f0")
-    vuv = float(((f0_0 > 0) == (ref_f0 > 0)).mean())
-    v = (f0_0 > 0) & (ref_f0 > 0)
-    cents = float(np.sqrt(np.mean(
-        (1200 * np.log2(f0_0[v] / ref_f0[v])) ** 2)))
+    vuv, cents = f0_stats(f0_0, get("harvest_f0"))
     sp_db = float(np.median(np.abs(10 * np.log10(
         sp_0 / get("cheaptrick_sp")))))
     env = envelope_db(y_np[0], get("synthesis_y"))
@@ -193,6 +222,161 @@ def main_path(torch, W, ola, get, scalars, tag, card):
         check(launches[k.__name__] > 0,
               f"{tag}: kernel {k.__name__} never launched on the main path")
     return result, recorded
+
+
+CODEC_DIMS = 64
+
+
+def dio_path(torch, W, ola, get, scalars, tag, card):
+    """Batch-16 step as the JAX package runs it by default (Dio ->
+    StoneMask -> CheapTrick -> D4C -> codec -> Synthesis), float32 fast
+    mode, on the card.  Gates: finite outputs, shapes, row 0's F0 against
+    the golden StoneMask track (VUV > 0.99, < 1 cent RMS), the ragged
+    kernel launched, and the coded sp/ap against the codec of a second
+    step's full sp/ap on the same batch (rtol/atol 2e-4).  Row 0's
+    envelope against the golden synthesis (made from Harvest's F0) is
+    reported, not gated."""
+    from world_tpu_torch.models import codec
+
+    fs = scalars["fs"]
+    x = get("x").astype(np.float32)
+    duration = len(x) / fs
+    fft = W.get_fft_size_for_cheaptrick(fs)
+    n_aper = W.get_number_of_aperiodicities(fs)
+    step = W.make_batch_step(fs, len(x), rng_mode="fast", f0_method="dio",
+                             codec_dims=CODEC_DIMS, device="cuda")
+    (f0, sp_c, ap_c, y), times, launches, stage_ms, recorded = drive(
+        torch, ola, step, batch_maker(torch, x))
+
+    # The same batch through the step without the codec: the fast RNG is
+    # seeded per call, so both steps see the same dither.
+    xb = batch_maker(torch, x)()
+    f0_a, sp_a, ap_a, _ = step(xb)
+    full = W.make_batch_step(fs, len(x), rng_mode="fast", f0_method="dio",
+                             device="cuda")
+    _, sp, ap, _ = full(xb)
+    want_sp = codec.code_spectral_envelope_batch(sp, fs, fft, CODEC_DIMS)
+    want_ap = codec.code_aperiodicity_batch(ap, fs, fft)
+
+    def coded_err(got, want):
+        return float(((got - want).abs()
+                      - 2e-4 * want.abs()).max()), float(
+                          (got - want).abs().max())
+
+    sp_slack, sp_err = coded_err(sp_a, want_sp)
+    ap_slack, ap_err = coded_err(ap_a, want_ap)
+
+    f0_0 = f0[0].double().cpu().numpy()
+    vuv, cents = f0_stats(f0_0, get("stonemask_f0"))
+    env = envelope_db(y.double().cpu().numpy()[0], get("synthesis_y"))
+    step_s = float(np.median(times))
+    F = len(get("stonemask_f0"))
+    shapes = [tuple(t.shape) for t in (f0, sp_c, ap_c, y)]
+    result = {
+        "card": card, "batch": BATCH, "audio_s_per_row": duration,
+        "codec_dims": CODEC_DIMS,
+        "step_ms_median": step_s * 1e3,
+        "step_ms_all": [t * 1e3 for t in times],
+        "rtf": BATCH * duration / step_s, "stage_ms": stage_ms,
+        "launches": launches,
+        "ola_ragged_shape": list(ola.ola_accumulate_ragged.last_shape),
+        "vuv_agreement": vuv, "cents_rms": cents,
+        "coded_sp_max_abs_err": sp_err, "coded_ap_max_abs_err": ap_err,
+        "info_envelope_vs_harvest_golden_median_db": float(np.median(env)),
+        "info_envelope_vs_harvest_golden_max_db": float(env.max()),
+        "finite": bool(all(torch.isfinite(t).all()
+                           for t in (f0, sp_c, ap_c, y))),
+        "shapes": [list(t) for t in shapes],
+    }
+    emit(tag, **result)
+    check(result["finite"], f"{tag}: non-finite output")
+    check(shapes == [(BATCH, F), (BATCH, F, CODEC_DIMS), (BATCH, F, n_aper),
+                     (BATCH, len(get("synthesis_y")))],
+          f"{tag}: shapes {shapes}")
+    check(vuv > 0.99, f"{tag}: VUV agreement {vuv}")
+    check(cents < 1.0, f"{tag}: {cents} cents RMS")
+    check(sp_slack <= 2e-4 and ap_slack <= 2e-4,
+          f"{tag}: coded sp/ap differ from the codec of the full step "
+          f"({sp_err}, {ap_err})")
+    for k in path_kernels(ola):
+        check(launches[k.__name__] > 0,
+              f"{tag}: kernel {k.__name__} never launched on the Dio path")
+    return result, recorded
+
+
+def dio_vs_cpu(torch, W, get, scalars):
+    """Row 0 of the 22.05 kHz batch through the Dio step, rng_mode
+    "none", on the card and on the CPU (the port on both)."""
+    fs = scalars["fs"]
+    x = get("x").astype(np.float32)[None]
+
+    def run(device):
+        step = W.make_batch_step(fs, x.shape[1], rng_mode="none",
+                                 f0_method="dio", device=device)
+        return [t.double().cpu().numpy()[0] for t in step(x)]
+
+    (f0, sp, _, y), (f0_c, sp_c, _, y_c) = run("cuda"), run("cpu")
+    vuv, cents = f0_stats(f0, f0_c)
+    sp_db = float(np.median(np.abs(10 * np.log10(sp / sp_c))))
+    env = float(np.median(envelope_db(y, y_c)))
+    emit("dio_vs_cpu", vuv_agreement=vuv, cents_rms=cents, sp_median_db=sp_db,
+         envelope_median_db=env)
+    check(vuv >= 0.99, f"dio_vs_cpu: VUV agreement {vuv}")
+    check(cents < 0.1, f"dio_vs_cpu: {cents} cents RMS")
+    check(sp_db < 0.01, f"dio_vs_cpu: sp median {sp_db} dB")
+    check(env < 0.5, f"dio_vs_cpu: envelope median {env} dB")
+
+
+def dio_exact(torch, W, get, scalars):
+    """float64 Dio and StoneMask on the card against the goldens at
+    tests/test_f0.py's gates."""
+    fs = scalars["fs"]
+    tp, f0 = W.dio(get("x"), fs, device="cuda")
+    tp, f0 = tp.cpu().numpy(), f0.cpu().numpy()
+    tp_err = float(np.abs(tp - get("dio_tp")).max())
+    ref = get("dio_f0")
+    v = (f0 > 0) & (ref > 0)
+    dio_vuv = float(((f0 > 0) == (ref > 0)).mean())
+    dio_max = float((1200 * np.abs(np.log2(f0[v] / ref[v]))).max())
+    sm = W.stone_mask(get("x"), fs, get("dio_tp"), get("dio_f0"),
+                      device="cuda").cpu().numpy()
+    ref = get("stonemask_f0")
+    v = (sm > 0) & (ref > 0)
+    sm_vuv = float(((sm > 0) == (ref > 0)).mean())
+    sm_max = float((1200 * np.abs(np.log2(sm[v] / ref[v]))).max())
+    emit("dio_exact", tp_max_abs_err=tp_err, dio_vuv=dio_vuv,
+         dio_max_cents=dio_max, stonemask_vuv=sm_vuv,
+         stonemask_max_cents=sm_max)
+    check(tp_err <= 1e-12, f"dio_exact: tp error {tp_err}")
+    check(dio_vuv == 1.0 and dio_max < 0.1,
+          f"dio_exact: Dio VUV {dio_vuv}, {dio_max} cents")
+    check(sm_vuv == 1.0 and sm_max < 0.1,
+          f"dio_exact: StoneMask VUV {sm_vuv}, {sm_max} cents")
+
+
+def codec_exact(torch, W, get, scalars):
+    """The four codec functions in float64 on the card against the
+    goldens at tests/test_codec.py's tolerances."""
+    fs, fft, dims = scalars["fs"], scalars["fft_size"], scalars["sp_dim"]
+
+    def run(fn, *args):
+        return fn(*args, device="cuda").cpu().numpy()
+
+    got = {
+        "coded_ap": run(W.code_aperiodicity, get("d4c_ap"), fs, fft),
+        "decoded_ap": run(W.decode_aperiodicity, get("coded_ap"), fs, fft),
+        "coded_sp": run(W.code_spectral_envelope, get("cheaptrick_sp"), fs,
+                        dims, fft),
+        "decoded_sp": run(W.decode_spectral_envelope, get("coded_sp"), fs,
+                          fft)}
+    err = {k: float(np.abs(v - get(k)).max()) for k, v in got.items()}
+    rel = float((np.abs(got["decoded_sp"] - get("decoded_sp"))
+                 / np.abs(get("decoded_sp"))).max())
+    emit("codec_exact", max_abs_err=err, decoded_sp_max_rel_err=rel)
+    check(err["coded_ap"] <= 1e-9, f"codec_exact: coded ap {err}")
+    check(err["decoded_ap"] <= 1e-10, f"codec_exact: decoded ap {err}")
+    check(err["coded_sp"] <= 1e-9, f"codec_exact: coded sp {err}")
+    check(rel <= 1e-9, f"codec_exact: decoded sp rel {rel}")
 
 
 def all_kernels(ola):
@@ -251,6 +435,14 @@ def main():
         get, scalars = load_goldens(gold)
         runs[tag], replays[tag] = main_path(torch, W, ola, get, scalars, tag,
                                             card)
+    for tag, gold in (("dio_22k", "goldens"), ("dio_48k", "goldens_fs48")):
+        get, scalars = load_goldens(gold)
+        runs[tag], replays[tag] = dio_path(torch, W, ola, get, scalars, tag,
+                                           card)
+    get, scalars = load_goldens("goldens")
+    dio_vs_cpu(torch, W, get, scalars)
+    dio_exact(torch, W, get, scalars)
+    codec_exact(torch, W, get, scalars)
 
     # Kernel timing (torch.profiler) comes after the main-path steps, so
     # that the steps' host-bound times see no profiler state.  Both modes
@@ -273,9 +465,9 @@ def main():
     check_cases(cases, "kernels")
 
 
-    # Both modes on the inputs the main path's ragged call received (the
+    # Both modes on the inputs each path's ragged call received (the
     # general mode on their padded layout); the kernels line reports the
-    # 22.05 kHz ones.
+    # 22.05 kHz Harvest path's and counts the launches of every path.
     at_paths = {}
     for tag, rec in replays.items():
         inputs, yp = rec["inputs"], rec["y_padded"]

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
 modes, at every tile, against its plain versions (torch.equal), IEEE
-division by fs on the card, and the batched step through the kernel.
-Each skips without a card.
+division by fs on the card, float64 Dio, StoneMask and the codec on the
+card against the goldens, and the batched steps (Harvest and Dio)
+through the kernel.  Each skips without a card.
 
 This file imports neither jax nor the JAX package and reads the goldens
 itself, so it also runs where JAX is not installed:
@@ -17,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import world_tpu_torch as W  # noqa: E402
 from world_tpu_torch.device import div  # noqa: E402
 from world_tpu_torch.ops import ola  # noqa: E402
 from world_tpu_torch.ops.ola import ola_accumulate, ola_plain  # noqa: E402
@@ -35,6 +37,10 @@ def golden(name):
                 shapes[parts[0]] = tuple(int(p) for p in parts[1:])
     return np.fromfile(os.path.join(GOLDENS, name + ".f64")).reshape(
         shapes[name])
+
+
+def cents(a, b):
+    return 1200.0 * np.abs(np.log2(a / b))
 
 
 @pytest.fixture
@@ -163,7 +169,7 @@ def test_batch_step_on_card(cuda):
     x = golden("x").astype(np.float32)
     ref = golden("harvest_f0")
     step = pipeline.make_batch_step(22050, len(x), rng_mode="fast",
-                                    device=cuda)
+                                    f0_method="harvest", device=cuda)
     before = ola.ola_accumulate_ragged.launches
     f0, sp, _, _ = step(np.stack([x, 0.7 * x]))
     assert ola.ola_accumulate_ragged.launches == before + 1
@@ -174,3 +180,61 @@ def test_batch_step_on_card(cuda):
     err_db = np.abs(10 * np.log10(sp[0].double().cpu().numpy()
                                   / golden("cheaptrick_sp")))
     assert np.median(err_db) < 0.01
+
+
+def test_dio_stonemask_f64_on_card_golden(cuda):
+    """tests/test_f0.py's gates on the card: the IEEE-division and
+    host-position traps hold there too."""
+    x = golden("x")
+    tp, f0 = W.dio(x, 22050, device=cuda)
+    np.testing.assert_allclose(tp.cpu().numpy(), golden("dio_tp"),
+                               atol=1e-12)
+    f0, ref = f0.cpu().numpy(), golden("dio_f0")
+    assert ((f0 > 0) == (ref > 0)).mean() == 1.0
+    v = (f0 > 0) & (ref > 0)
+    assert cents(f0[v], ref[v]).max() < 0.1
+    sm = W.stone_mask(x, 22050, golden("dio_tp"), golden("dio_f0"),
+                      device=cuda).cpu().numpy()
+    ref = golden("stonemask_f0")
+    assert ((sm > 0) == (ref > 0)).mean() == 1.0
+    v = (sm > 0) & (ref > 0)
+    assert cents(sm[v], ref[v]).max() < 0.1
+
+
+def test_codec_f64_on_card_golden(cuda):
+    """tests/test_codec.py's golden gates on the card."""
+    fs, fft = 22050, 1024
+    out = W.code_aperiodicity(golden("d4c_ap"), fs, fft, device=cuda)
+    np.testing.assert_allclose(out.cpu().numpy(), golden("coded_ap"),
+                               atol=1e-9)
+    out = W.decode_aperiodicity(golden("coded_ap"), fs, fft, device=cuda)
+    np.testing.assert_allclose(out.cpu().numpy(), golden("decoded_ap"),
+                               atol=1e-10)
+    coded = golden("coded_sp")
+    out = W.code_spectral_envelope(golden("cheaptrick_sp"), fs,
+                                   coded.shape[1], fft, device=cuda)
+    np.testing.assert_allclose(out.cpu().numpy(), coded, atol=1e-9)
+    out = W.decode_spectral_envelope(coded, fs, fft, device=cuda)
+    np.testing.assert_allclose(out.cpu().numpy(), golden("decoded_sp"),
+                               rtol=1e-9)
+
+
+def test_dio_step_on_card(cuda):
+    """The default (Dio) float32 fast step with codec_dims on the card at
+    batch 2: the golden StoneMask gate (< 1 cent RMS), coded shapes, and
+    one launch of the ragged OLA kernel."""
+    x = golden("x").astype(np.float32)
+    ref = golden("stonemask_f0")
+    step = pipeline.make_batch_step(22050, len(x), rng_mode="fast",
+                                    codec_dims=64, device=cuda)
+    before = ola.ola_accumulate_ragged.launches
+    f0, sp, ap, y = step(np.stack([x, 0.7 * x]))
+    assert ola.ola_accumulate_ragged.launches == before + 1
+    assert sp.shape == (2, len(ref), 64)
+    n_aper = W.get_number_of_aperiodicities(22050)
+    assert ap.shape == (2, len(ref), n_aper)
+    assert torch.isfinite(y).all()
+    f0 = f0[0].double().cpu().numpy()
+    assert ((f0 > 0) == (ref > 0)).mean() > 0.99
+    v = (f0 > 0) & (ref > 0)
+    assert np.sqrt(np.mean(cents(f0[v], ref[v]) ** 2)) < 1.0

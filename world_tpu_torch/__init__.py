@@ -1,18 +1,20 @@
 """world_tpu_torch: the WORLD vocoder on PyTorch and CUDA (port of the
 JAX package world_tpu, which stays the reference).
 
-This slice covers the main path, Harvest -> CheapTrick -> D4C ->
-Synthesis, plus the batched step.  Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``; with no device given and no GPU they
-raise.  The overlap-add of synthesis is a hand-written CUDA kernel
-(csrc/ola.cu), built with nvcc at first use.
+Ported so far: Dio, StoneMask, Harvest, CheapTrick, D4C, Synthesis, the
+codec, wav/parameter I/O and the batched step.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; with no device given
+and no GPU they raise.  The overlap-add of synthesis is a hand-written
+CUDA kernel (csrc/ola.cu), built with nvcc at first use.
 
-    harvest                            -- F0 estimation
+    dio, stone_mask, harvest           -- F0 estimation / refinement
     cheap_trick                        -- spectral envelope
     d4c                                -- band aperiodicity
     synthesis                          -- waveform synthesis
+    code_/decode_spectral_envelope, code_/decode_aperiodicity
     analyze / synthesize               -- full pipeline conveniences
     make_batch_step / get_batch_step   -- batched analysis + synthesis
+    io.audio / io.parameterio          -- wav and parameter files
 """
 
 __version__ = "0.1.0"
@@ -21,23 +23,32 @@ import dataclasses
 
 import torch
 
-from .config import (CheapTrickOption, D4COption, HarvestOption,
+from . import io  # noqa: F401  (world_tpu_torch.io.audio / .parameterio)
+from .config import (CheapTrickOption, D4COption, DioOption, HarvestOption,
                      get_f0_floor_for_cheaptrick, get_fft_size_for_cheaptrick,
-                     get_number_of_aperiodicities, get_samples_for_harvest)
+                     get_number_of_aperiodicities, get_samples_for_dio,
+                     get_samples_for_harvest)
 from .device import as_tensor, resolve_device
 from .models.cheaptrick import cheap_trick
+from .models.codec import (code_aperiodicity, code_spectral_envelope,
+                           decode_aperiodicity, decode_spectral_envelope)
 from .models.d4c import d4c
+from .models.dio import dio
 from .models.harvest import harvest
+from .models.stonemask import stone_mask
 from .models.synthesis import synthesis
 from .parallel.pipeline import get_batch_step, make_batch_step
 
 __all__ = [
-    "harvest", "cheap_trick", "d4c", "synthesis",
-    "HarvestOption", "CheapTrickOption", "D4COption",
+    "dio", "stone_mask", "harvest", "cheap_trick", "d4c", "synthesis",
+    "code_aperiodicity", "decode_aperiodicity",
+    "code_spectral_envelope", "decode_spectral_envelope",
+    "DioOption", "HarvestOption", "CheapTrickOption", "D4COption",
     "analyze", "synthesize", "WorldParameters",
     "make_batch_step", "get_batch_step",
     "get_fft_size_for_cheaptrick", "get_f0_floor_for_cheaptrick",
-    "get_number_of_aperiodicities", "get_samples_for_harvest",
+    "get_number_of_aperiodicities", "get_samples_for_dio",
+    "get_samples_for_harvest",
 ]
 
 
@@ -57,19 +68,24 @@ def analyze(x, fs, frame_period=5.0, f0_method="harvest", rng_mode="exact",
             f0_option=None, device=None):
     """Full analysis: F0 -> spectral envelope -> aperiodicity.
 
-    f0_method: "harvest" (the reference test.cpp default; "dio" lands in
-    a later slice of the port).  f0_option optionally overrides the
-    HarvestOption (its frame_period is forced to ``frame_period``).
+    f0_method: "harvest" (quality, the reference test.cpp default) or
+    "dio" (fast; refined with StoneMask).  f0_option optionally overrides
+    the HarvestOption/DioOption (its frame_period is forced to
+    ``frame_period``).
     """
-    if f0_method != "harvest":
-        raise NotImplementedError(f"f0_method={f0_method!r} is not ported "
-                                  "yet")
     dev = resolve_device(device)
     x = as_tensor(x, dev)
-    opt = f0_option or HarvestOption()
-    tp, f0 = harvest(x, fs, dataclasses.replace(opt,
-                                                frame_period=frame_period),
-                     device=dev)
+    if f0_method == "harvest":
+        opt = f0_option or HarvestOption()
+        tp, f0 = harvest(x, fs, dataclasses.replace(
+            opt, frame_period=frame_period), device=dev)
+    elif f0_method == "dio":
+        opt = f0_option or DioOption()
+        tp, f0 = dio(x, fs, dataclasses.replace(
+            opt, frame_period=frame_period), device=dev)
+        f0 = stone_mask(x, fs, tp, f0, device=dev)
+    else:
+        raise ValueError(f0_method)
     option = CheapTrickOption().resolve(fs)
     sp = cheap_trick(x, fs, tp, f0, option, rng_mode=rng_mode, device=dev)
     ap = d4c(x, fs, tp, f0, option.fft_size, rng_mode=rng_mode, device=dev)

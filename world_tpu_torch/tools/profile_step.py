@@ -1,9 +1,11 @@
 """Profile one batched step of the port on the card.
 
     python -m world_tpu_torch.tools.profile_step [--fs 22050|48000]
-        [--batch 16] [--out profile_22050.json]
+        [--batch 16] [--f0-method dio|harvest] [--codec-dims N]
+        [--out profile_22050.json]
 
-Drives make_batch_step(f0_method="harvest", rng_mode="fast") on rows of
+Drives make_batch_step(rng_mode="fast") with the given F0 method (Dio,
+the step's default, or Harvest) and optional on-device codec on rows of
 the golden utterance in float32 and reports, for one step after warm-up:
 wall ms, per-stage ms (synchronized stage clock, a separate step), and
 from torch.profiler the device-busy ms (sum of kernel and copy times on
@@ -29,6 +31,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fs", type=int, default=22050, choices=sorted(GOLDENS))
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--f0-method", default="dio", choices=("dio", "harvest"))
+    ap.add_argument("--codec-dims", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -45,7 +49,9 @@ def main(argv=None):
                                  "x.f64")).astype(np.float32)
     gains = np.linspace(0.5, 1.5, args.batch).astype(np.float32)
     xb = torch.as_tensor(x[None] * gains[:, None], device="cuda")
-    step = make_batch_step(args.fs, len(x), rng_mode="fast", device="cuda")
+    step = make_batch_step(args.fs, len(x), rng_mode="fast",
+                           f0_method=args.f0_method,
+                           codec_dims=args.codec_dims, device="cuda")
     for _ in range(2):
         step(xb)
     torch.cuda.synchronize()
@@ -71,6 +77,7 @@ def main(argv=None):
         timeout=60).stdout.strip()
     result = {
         "card": card, "fs": args.fs, "batch": args.batch,
+        "f0_method": args.f0_method, "codec_dims": args.codec_dims,
         "audio_s": args.batch * len(x) / args.fs,
         "wall_ms": wall_ms, "stage_ms": stages,
         "device_busy_ms": busy_ms if kernels else "not measured",
