@@ -31,10 +31,45 @@ Phases, one JSON line each, in this order:
             an L2 flush), host us per call, CUDA-event times, the plain
             and index_add times and the bound from the real pulses'
             bytes (world_tpu_torch/tools/ola_bench.py)
+  stream_exact_22k  StreamingSynthesizer, float64 exact mode, from the
+            golden Harvest F0, CheapTrick sp and D4C ap: all parameters at
+            once (1 pointer, buffer 64) against synthesis2_y and frame by
+            frame (100 pointers) against synthesis3_y, SNR > 80 dB; the
+            general mode (ola_accumulate) launched
+  stream_span_vs_rows  float64, span_render=True (the kernel) against
+            span_render=False (rows added on the host), 22.05 and 48 kHz,
+            SNR > 200 dB
+  stream_vs_cpu_48k  float32, rng_mode "none", card against the port on
+            the CPU, SNR > 60 dB
+  stream_f32  float32 fast mode, all parameters up front, buffers 64 and
+            4096, 22.05 and 48 kHz: audio seconds per wall second (median
+            and best of 5 after a discarded first run), renders per
+            stream, general-mode launches; power against synthesis2_y
+            within 0.5-2x at 22.05 kHz
+  stream_frame_feed  the reference's real-time scenario: one 5 ms frame
+            per add_parameters, buffer 64, hold_on_miss, dispatch_min 2,
+            hold_force_ms 8: per-call ms p50/p99, holds, the lag of the
+            audio behind a paced feed; its audio against the all-up-front
+            float32 run with the same RNG, SNR > 80 dB
+  longform_check  analyze_long (4 s chunks) of 12 s at 16 kHz against
+            whole-signal analysis on the card, Dio (0.2 s halo) and
+            Harvest (float32): VUV > 0.99, 95th percentile cents < 1,
+            median sp dB < 0.1 on interior frames
+  longform_48k  analyze_long of 300 s of 48 kHz int16 (Harvest, 6.25 s
+            chunks, codec 64, LONGFORM_LANES rows per batch): audio
+            seconds per wall second, peak device memory, batches in
+            flight; finite, shapes; on the first 60 s the int16 + codec
+            run against the float32 uncoded run coded afterwards (rtol/atol
+            2e-3)
+  longform_synth  synthesize_long (buffer 4096, 512-frame pushes, float32
+            fast) of the 48 kHz analysis of 60 s: audio seconds per wall
+            second; length, continuity, general-mode launches
   kernels_at_path  both modes on the offsets and row_ptr the four path
-            runs (main_*, dio_*) gave the ragged kernel
-Then the kernels summary line (launches summed over the four path
-runs), the nvidia-smi line, and the final
+            runs (main_*, dio_*) gave the ragged kernel, and the general
+            mode on one stream_f32 span render's inputs at each rate
+Then the kernels summary line (ragged launches summed over the four
+batch runs, general launches over the streaming and long-form phases),
+the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
 without the repository around it, it exits non-zero at once.
@@ -379,14 +414,452 @@ def codec_exact(torch, W, get, scalars):
     check(rel <= 1e-9, f"codec_exact: decoded sp rel {rel}")
 
 
+STREAM_RATES = (("22k", "goldens"), ("48k", "goldens_fs48"))
+LONGFORM_LANES = 16
+SNR_CAP = 999.0
+
+
+def snr_db(ref, y):
+    """SNR of ``y`` against ``ref`` over the samples where ``ref`` is
+    nonzero, both cut to ref's length; SNR_CAP when they are equal."""
+    out = np.zeros(len(ref))
+    m = min(len(ref), len(y))
+    out[:m] = y[:m]
+    v = ref != 0
+    err = np.sum((ref[v] - out[v]) ** 2)
+    if err == 0:
+        return SNR_CAP
+    return float(10 * np.log10(np.sum(ref[v] ** 2) / err))
+
+
+def golden_params(get, dtype):
+    return tuple(get(k).astype(dtype)
+                 for k in ("harvest_f0", "cheaptrick_sp", "d4c_ap"))
+
+
+def frames_of(params, step):
+    n = len(params[0])
+    return [tuple(a[i: i + step] for a in params) for i in range(0, n, step)]
+
+
+def stream(W, fs, fft, feed, bs, n_pointers, dev, **kw):
+    """A StreamingSynthesizer fed the (f0, sp, ap) chunks of ``feed``,
+    drained after each.  Returns (audio, synthesizer, seconds)."""
+    t0 = time.perf_counter()
+    s = W.StreamingSynthesizer(fs, 5.0, fft, bs, n_pointers, device=dev,
+                               **kw)
+    out = []
+    for f0, sp, ap in feed:
+        check(s.add_parameters(f0, sp, ap), "stream: ring full")
+        while s.synthesis2():
+            out.append(s.buffer[:bs].copy())
+    s.close()
+    return np.concatenate(out), s, time.perf_counter() - t0
+
+
+def stream_exact(W, ola, dev):
+    """float64 exact streaming on the card against the reference's own
+    streaming outputs."""
+    get, sc = load_goldens("goldens")
+    fs, fft = sc["fs"], sc["fft_size"]
+    p = golden_params(get, np.float64)
+    ola.ola_accumulate.launches = 0
+    y_all, s_all, t_all = stream(W, fs, fft, [p], 64, 1, dev)
+    y_fr, s_fr, t_fr = stream(W, fs, fft, frames_of(p, 1), 64, 100, dev)
+    launches = ola.ola_accumulate.launches
+    snr_all = snr_db(get("synthesis2_y"), y_all)
+    snr_fr = snr_db(get("synthesis3_y"), y_fr)
+    emit("stream_exact_22k", seconds=t_all + t_fr,
+         snr_all_at_once_db=snr_all, snr_frame_by_frame_db=snr_fr,
+         renders=[s_all.renders, s_fr.renders], ola_accumulate=launches)
+    check(snr_all > 80.0, f"stream_exact_22k: all at once {snr_all} dB")
+    check(snr_fr > 80.0, f"stream_exact_22k: frame by frame {snr_fr} dB")
+    check(dev == "cpu" or launches > 0,
+          "stream_exact_22k: ola_accumulate never launched")
+    return launches
+
+
+def stream_span_vs_rows(W, ola, dev):
+    """Span render (the general-mode kernel) against rows added on the
+    host, float64, all parameters at once."""
+    t0 = time.perf_counter()
+    ola.ola_accumulate.launches = 0
+    res = {}
+    for tag, gold in STREAM_RATES:
+        get, sc = load_goldens(gold)
+        p = golden_params(get, np.float64)
+        y_span, _, _ = stream(W, sc["fs"], sc["fft_size"], [p], 64, 1, dev)
+        y_rows, _, _ = stream(W, sc["fs"], sc["fft_size"], [p], 64, 1, dev,
+                              span_render=False)
+        res[tag] = snr_db(y_rows, y_span)
+    launches = ola.ola_accumulate.launches
+    emit("stream_span_vs_rows", seconds=time.perf_counter() - t0,
+         snr_db=res, ola_accumulate=launches)
+    for tag, v in res.items():
+        check(v > 200.0, f"stream_span_vs_rows {tag}: {v} dB")
+    return launches
+
+
+def stream_vs_cpu(W, ola, dev):
+    """float32, rng "none", 7 frames per push: card against CPU."""
+    get, sc = load_goldens("goldens_fs48")
+    p = golden_params(get, np.float32)
+    kw = dict(rng_mode="none", dtype=np.float32)
+    ola.ola_accumulate.launches = 0
+    y, s, t = stream(W, sc["fs"], sc["fft_size"], frames_of(p, 7), 64, 100,
+                     dev, **kw)
+    launches = ola.ola_accumulate.launches
+    y_cpu, _, t_cpu = stream(W, sc["fs"], sc["fft_size"], frames_of(p, 7),
+                             64, 100, "cpu", **kw)
+    v = snr_db(y_cpu.astype(np.float64), y.astype(np.float64))
+    emit("stream_vs_cpu_48k", seconds=t + t_cpu, snr_db=v,
+         renders=s.renders, ola_accumulate=launches)
+    check(len(y) == len(y_cpu), "stream_vs_cpu_48k: lengths differ")
+    check(v > 60.0, f"stream_vs_cpu_48k: {v} dB")
+    return launches
+
+
+def record_general(realtime, fn):
+    """Run ``fn`` recording the inputs of the largest ola_accumulate call
+    the streaming render makes."""
+    real = realtime.ola_accumulate
+    rec = {}
+
+    def record(responses, offsets, *, y_padded):
+        if responses.shape[1] > rec.get("pulses", 0):
+            rec.update(pulses=responses.shape[1], y_padded=y_padded,
+                       inputs=(responses, offsets))
+        return real(responses, offsets, y_padded=y_padded)
+
+    realtime.ola_accumulate = record
+    try:
+        out = fn()
+    finally:
+        realtime.ola_accumulate = real
+    return out, rec
+
+
+def stream_f32(W, ola, dev, runs=5):
+    """All parameters up front, float32 fast mode (bench.py:329-348):
+    one discarded run, then ``runs`` timed runs with fresh content."""
+    from world_tpu_torch.models import realtime
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20261016)
+    res, recorded, total = {}, {}, 0
+    for tag, gold in STREAM_RATES:
+        get, sc = load_goldens(gold)
+        fs, fft = sc["fs"], sc["fft_size"]
+        f0, sp, ap = golden_params(get, np.float32)
+        for bs in (64, 4096):
+            kw = dict(rng_mode="fast", dtype=np.float32)
+            (y0, _, _), rec = record_general(realtime, lambda: stream(
+                W, fs, fft, [(f0, sp, ap)], bs, 200, dev, **kw))
+            if bs == 64:
+                recorded[tag] = rec
+            ola.ola_accumulate.launches = 0
+            times, renders = [], []
+            for _ in range(runs):
+                scale = np.float32(0.5 + rng.random())
+                y, s, t = stream(W, fs, fft, [(f0, sp * scale, ap)], bs, 200,
+                                 dev, **kw)
+                times.append(t)
+                renders.append(s.renders)
+            launches = ola.ola_accumulate.launches
+            total += launches
+            audio_s = len(y) / fs
+            res[f"{tag}_buf{bs}"] = {
+                "audio_s": audio_s, "seconds": times,
+                "rtf_median": audio_s / float(np.median(times)),
+                "rtf_best": audio_s / float(np.min(times)),
+                "renders_per_stream": renders, "ola_accumulate": launches}
+            if tag == "22k" and bs == 64:
+                ref = get("synthesis2_y")
+                v = ref != 0
+                m = min(len(ref), len(y0))
+                out = np.zeros(len(ref))
+                out[:m] = y0[:m]
+                res["power_ratio_22k"] = float(np.sum(out[v] ** 2)
+                                               / np.sum(ref[v] ** 2))
+    emit("stream_f32", seconds=time.perf_counter() - t_phase, **res,
+         span_inputs={k: [r.get("pulses"), r.get("y_padded")]
+                      for k, r in recorded.items()})
+    ratio = res["power_ratio_22k"]
+    check(0.5 < ratio < 2.0, f"stream_f32: power ratio {ratio}")
+    check(dev == "cpu" or total > 0, "stream_f32: ola_accumulate never "
+          "launched")
+    return total, recorded
+
+
+def frame_feed(s, params, paced):
+    """The real-time scenario (bench.py:356-406) through synthesizer
+    ``s`` (refreshed first): one 5 ms frame per add_parameters, 64-sample
+    buffers drained as they become available.  Returns (audio, call ms,
+    per-buffer lag ms behind the feed's frame it needs, holds, renders)."""
+    f0, sp, ap = params
+    fs, bs, frame_s = s.fs, s.buffer_size, 0.005
+    s.refresh()
+    renders0 = s.renders
+    y_total = int((len(f0) - 1) * frame_s * fs) + 1
+    out, call_ms, avail, feed_t = [], [], [], []
+    t0 = time.perf_counter()
+
+    def pump():
+        t1 = time.perf_counter()
+        ok = s.synthesis2()
+        t2 = time.perf_counter()
+        call_ms.append(1e3 * (t2 - t1))
+        if ok:
+            out.append(s.buffer[:bs].copy())
+            avail.append(t2 - t0)
+        return ok
+
+    for i in range(len(f0)):
+        if paced:   # frame i arrives at t0 + 5 ms * i
+            while time.perf_counter() - t0 < i * frame_s:
+                if not pump():
+                    time.sleep(2e-4)
+        while not s.add_parameters(f0[i: i + 1], sp[i: i + 1],
+                                   ap[i: i + 1]):
+            pump()
+        feed_t.append(time.perf_counter() - t0)
+        while pump():
+            pass
+    deadline = time.perf_counter() + 20.0
+    while len(out) * bs < y_total - bs and time.perf_counter() < deadline:
+        if not pump():
+            if s.synthesized_sample + bs >= s.last_location:
+                break
+            time.sleep(2e-4)
+    nb = len(avail)
+    need = np.minimum((np.ceil(np.arange(1, nb + 1) * bs / (frame_s * fs))
+                       + 1).astype(int), len(feed_t) - 1)
+    lag_ms = 1e3 * (np.asarray(avail) - np.asarray(feed_t)[need])
+    return (np.concatenate(out), np.asarray(call_ms), lag_ms, s.holds,
+            s.renders - renders0)
+
+
+def stream_frame_feed(W, ola, dev):
+    """The reference's real-time scenario on the card."""
+    t_phase = time.perf_counter()
+    get, sc = load_goldens("goldens")
+    fs, fft = sc["fs"], sc["fft_size"]
+    p = golden_params(get, np.float32)
+    t0 = time.perf_counter()
+    s = W.StreamingSynthesizer(
+        fs, 5.0, fft, 64, 250, rng_mode="fast", dtype=np.float32,
+        hold_on_miss=True, dispatch_min_pulses=2, hold_force_ms=8.0,
+        device=dev).warmup()
+    warmup_s = time.perf_counter() - t0
+    frame_feed(s, p, paced=False)                  # discarded
+    ola.ola_accumulate.launches = 0
+    y, call_ms, _, holds, renders = frame_feed(s, p, paced=False)
+    yp, call_p, lag_ms, holds_p, renders_p = frame_feed(s, p, paced=True)
+    launches = ola.ola_accumulate.launches
+    s.close()
+    y_ref, _, _ = stream(W, fs, fft, [p], 64, 250, dev, rng_mode="fast",
+                         dtype=np.float32)
+    v = snr_db(y_ref.astype(np.float64), y.astype(np.float64))
+    v_paced = snr_db(y_ref.astype(np.float64), yp.astype(np.float64))
+    prime = min(32, len(lag_ms) // 2)
+    emit("stream_frame_feed", seconds=time.perf_counter() - t_phase,
+         warmup_s=warmup_s,
+         unpaced={"call_ms_p50": float(np.percentile(call_ms, 50)),
+                  "call_ms_p99": float(np.percentile(call_ms, 99)),
+                  "call_ms_max": float(call_ms.max()), "calls": len(call_ms),
+                  "holds": holds, "renders": renders, "snr_db": v},
+         paced={"call_ms_p50": float(np.percentile(call_p, 50)),
+                "call_ms_p99": float(np.percentile(call_p, 99)),
+                "call_ms_max": float(call_p.max()), "holds": holds_p,
+                "renders": renders_p, "snr_db": v_paced,
+                "priming_lag_ms_max": float(lag_ms[:prime].max()),
+                "lag_ms_p50": float(np.percentile(lag_ms[prime:], 50)),
+                "lag_ms_p99": float(np.percentile(lag_ms[prime:], 99)),
+                "lag_ms_max": float(lag_ms[prime:].max())},
+         ola_accumulate=launches)
+    check(v > 80.0, f"stream_frame_feed: {v} dB against all-up-front")
+    check(v_paced > 80.0, f"stream_frame_feed paced: {v_paced} dB")
+    return launches
+
+
+def long_vowelish(fs, seconds, seed=1):
+    """tests/test_longform.py::_long_vowelish (that module imports JAX)."""
+    rng = np.random.RandomState(seed)
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    f0 = 130.0 + 25.0 * np.sin(2 * np.pi * 0.4 * t)
+    phase = np.cumsum(2 * np.pi * f0 / fs)
+    x = np.sin(phase) + 0.4 * np.sin(2 * phase + 0.3) \
+        + 0.15 * np.sin(3 * phase + 1.1) + 0.003 * rng.randn(n)
+    return 0.3 * x / np.abs(x).max()
+
+
+def chunk_stats(f0_c, sp_c, f0, sp, chunk_seconds):
+    """tests/test_longform.py's interior-frame statistics: (frames voiced
+    in both, VUV agreement, 95th percentile cents, median sp dB)."""
+    f0_c, sp_c, f0, sp = (np.asarray(a, np.float64)
+                          for a in (f0_c, sp_c, f0, sp))
+    n = len(f0)
+    core = int(round(chunk_seconds / 0.005))
+    interior = np.ones(n, bool)
+    for b in range(0, n, core):
+        interior[max(0, b - 2): b + 3] = False
+    both = (f0 > 0) & (f0_c > 0) & interior
+    vuv = float(((f0 > 0) == (f0_c > 0))[interior].mean())
+    cents = float(np.percentile(1200 * np.abs(np.log2(f0_c[both]
+                                                      / f0[both])), 95))
+    db = float(np.median(np.abs(10 * np.log10(sp_c[both] / sp[both]))))
+    return {"both": int(both.sum()), "n": n, "vuv": vuv, "cents_p95": cents,
+            "sp_median_db": db}
+
+
+def longform_check(W, dev, fs=16000, seconds=12.0, chunk=4.0):
+    """Chunked against whole-signal analysis on the card."""
+    from world_tpu_torch.parallel import analyze_long
+
+    t0 = time.perf_counter()
+    x = long_vowelish(fs, seconds)
+    _, f0_c, sp_c, _ = analyze_long(x, fs, chunk_seconds=chunk,
+                                    halo_seconds=0.2, f0_method="dio",
+                                    device=dev)
+    p = W.analyze(x, fs, f0_method="dio", device=dev)
+    dio = chunk_stats(f0_c, sp_c, p.f0.cpu().numpy(),
+                      p.spectrogram.cpu().numpy(), chunk)
+    x32 = x.astype(np.float32)
+    _, f0_c, sp_c, _ = analyze_long(x32, fs, chunk_seconds=chunk,
+                                    f0_method="harvest", device=dev)
+    tp, f0 = W.harvest(x32, fs, device=dev)
+    sp = W.cheap_trick(x32, fs, tp, f0, device=dev)
+    harvest = chunk_stats(f0_c, sp_c, f0.cpu().numpy(), sp.cpu().numpy(),
+                          chunk)
+    emit("longform_check", seconds=time.perf_counter() - t0, dio=dio,
+         harvest=harvest)
+    for name, r in (("dio", dio), ("harvest", harvest)):
+        check(r["both"] > r["n"] // 2 and r["vuv"] > 0.99
+              and r["cents_p95"] < 1.0 and r["sp_median_db"] < 0.1,
+              f"longform_check {name}: {r}")
+
+
+def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
+    """300 s of 48 kHz int16 (bench.py:217-225) through analyze_long."""
+    from world_tpu_torch.models import codec
+    from world_tpu_torch.parallel import analyze_long, longform
+
+    t_phase = time.perf_counter()
+    get, _ = load_goldens("goldens_fs48")
+    fs = 48000
+    x48 = get("x")
+    reps = int(np.ceil(seconds * fs / len(x48)))
+    base = np.tile(x48, reps)[: int(seconds * fs)]
+    rng = np.random.default_rng(20261016)
+    scale = 0.4 + 0.4 * rng.random()
+    xi = (np.clip(base * scale, -0.999, 0.999) * 32767).astype(np.int16)
+    kw = dict(chunk_seconds=6.25, f0_method="harvest", device=dev)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    in_flight = []
+    real_init = longform._Batch.__init__
+
+    def init(self, outs, d):
+        in_flight.append(1)
+        real_init(self, outs, d)
+
+    real_result = longform._Batch.result
+
+    def result(self):
+        in_flight.append(-1)
+        return real_result(self)
+
+    longform._Batch.__init__, longform._Batch.result = init, result
+    try:
+        t0 = time.perf_counter()
+        tp, f0, sp, ap = analyze_long(xi, fs, codec_dims=CODEC_DIMS,
+                                      batch_lanes=lanes, **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        longform._Batch.__init__, longform._Batch.result = (real_init,
+                                                            real_result)
+    peak = torch.cuda.max_memory_allocated() if dev != "cpu" else None
+    n_aper = W.get_number_of_aperiodicities(fs)
+    F = W.get_samples_for_dio(fs, len(xi), 5.0)
+    shapes = [list(a.shape) for a in (f0, sp, ap)]
+    finite = bool(all(np.isfinite(a).all() for a in (f0, sp, ap)))
+
+    # The first 60 s: int16 + codec against float32 uncoded, coded after
+    # (rng "none": the fast dither of a chunk depends on its batch row).
+    n60 = 60 * fs
+    kw60 = dict(kw, rng_mode="none", batch_lanes=lanes)
+    _, f0_b, csp_b, cap_b = analyze_long(xi[:n60], fs, codec_dims=CODEC_DIMS,
+                                         **kw60)
+    _, f0_a, sp_a, ap_a = analyze_long(
+        (xi[:n60].astype(np.float64) / 32768.0).astype(np.float32), fs,
+        **kw60)
+    fft = W.get_fft_size_for_cheaptrick(fs)
+    csp_a = codec.code_spectral_envelope(sp_a.astype(np.float64), fs,
+                                         CODEC_DIMS, fft, device=dev)
+    cap_a = codec.code_aperiodicity(ap_a.astype(np.float64), fs, fft,
+                                    device=dev)
+
+    def slack(got, want):
+        want = want.cpu().numpy()
+        return float((np.abs(got - want) - 2e-3 * np.abs(want)).max())
+
+    coded = {"sp_slack": slack(csp_b, csp_a), "ap_slack": slack(cap_b, cap_a),
+             "f0_max_abs_diff": float(np.abs(f0_b - f0_a).max())}
+    emit("longform_48k", seconds=time.perf_counter() - t_phase,
+         audio_s=seconds, wall_s=wall, rtf=seconds / wall,
+         batch_lanes=lanes, batches=in_flight.count(1),
+         batches_in_flight_max=int(np.cumsum(in_flight).max()),
+         peak_device_bytes=peak, shapes=shapes, finite=finite,
+         first_60s=coded)
+    check(finite, "longform_48k: non-finite output")
+    check(shapes == [[F], [F, CODEC_DIMS], [F, n_aper]],
+          f"longform_48k: shapes {shapes}")
+    check(coded["sp_slack"] <= 2e-3 and coded["ap_slack"] <= 2e-3,
+          f"longform_48k: coded first 60 s differ: {coded}")
+    check(int(np.cumsum(in_flight).max()) <= longform.IN_FLIGHT,
+          "longform_48k: too many batches in flight")
+
+
+def longform_synth(W, ola, dev, seconds=60.0):
+    """synthesize_long of the 48 kHz analysis of 60 s."""
+    from world_tpu_torch.parallel import analyze_long, synthesize_long
+
+    t_phase = time.perf_counter()
+    fs = 48000
+    x = long_vowelish(fs, seconds).astype(np.float32)
+    _, f0, sp, ap = analyze_long(x, fs, chunk_seconds=6.25,
+                                 f0_method="dio", batch_lanes=LONGFORM_LANES,
+                                 device=dev)
+    ola.ola_accumulate.launches = 0
+    t0 = time.perf_counter()
+    y = synthesize_long(f0, sp, ap, fs, device=dev)
+    wall = time.perf_counter() - t0
+    launches = ola.ola_accumulate.launches
+    seg = y[: (len(y) // 2048) * 2048].reshape(-1, 2048).astype(np.float64)
+    rms = seg.std(axis=1)
+    emit("longform_synth", seconds=time.perf_counter() - t_phase,
+         audio_s=len(y) / fs, wall_s=wall, rtf=len(y) / fs / wall,
+         length_ratio=len(y) / len(x),
+         rms_min_over_median=float(rms.min() / np.median(rms)),
+         finite=bool(np.isfinite(y).all()), ola_accumulate=launches)
+    check(len(y) > 0.9 * len(x), "longform_synth: short output")
+    check(np.isfinite(y).all(), "longform_synth: non-finite output")
+    check(rms.min() > 0.05 * np.median(rms), "longform_synth: dropouts")
+    check(dev == "cpu" or launches > 0,
+          "longform_synth: ola_accumulate never launched")
+    return launches
+
+
 def all_kernels(ola):
     """Every kernel wrapper of the port (each counts its launches)."""
     return [ola.ola_accumulate, ola.ola_accumulate_ragged]
 
 
 def path_kernels(ola):
-    """The wrappers the main path must launch: batch synthesis calls the
-    ragged mode; the general mode's caller (streaming) is not ported."""
+    """The wrappers the batch steps must launch: batch synthesis calls
+    the ragged mode (streaming, checked in its phases, the general)."""
     return [ola.ola_accumulate_ragged]
 
 
@@ -444,6 +917,18 @@ def main():
     dio_exact(torch, W, get, scalars)
     codec_exact(torch, W, get, scalars)
 
+    # Streaming and long-form, each with the kernel counts set to 0 just
+    # before it and read just after (general-mode launches per phase).
+    general = {
+        "stream_exact_22k": stream_exact(W, ola, "cuda"),
+        "stream_span_vs_rows": stream_span_vs_rows(W, ola, "cuda"),
+        "stream_vs_cpu_48k": stream_vs_cpu(W, ola, "cuda")}
+    general["stream_f32"], stream_rec = stream_f32(W, ola, "cuda")
+    general["stream_frame_feed"] = stream_frame_feed(W, ola, "cuda")
+    longform_check(W, "cuda")
+    longform_48k(torch, W, "cuda")
+    general["longform_synth"] = longform_synth(W, ola, "cuda")
+
     # Kernel timing (torch.profiler) comes after the main-path steps, so
     # that the steps' host-bound times see no profiler state.  Both modes
     # at the shapes of PERF.md's table, float32 and float64:
@@ -465,9 +950,11 @@ def main():
     check_cases(cases, "kernels")
 
 
-    # Both modes on the inputs each path's ragged call received (the
-    # general mode on their padded layout); the kernels line reports the
-    # 22.05 kHz Harvest path's and counts the launches of every path.
+    # Both modes on the inputs each batch path's ragged call received (the
+    # general mode on their padded layout), and the general mode on one
+    # stream_f32 span render's inputs at each rate.  The kernels line
+    # reports the 22.05 kHz Harvest path's ragged case and the 22.05 kHz
+    # stream's general case.
     at_paths = {}
     for tag, rec in replays.items():
         inputs, yp = rec["inputs"], rec["y_padded"]
@@ -476,27 +963,33 @@ def main():
             "general": bench.measure(torch, ola, "general",
                                      bench.to_padded(torch, *inputs), yp,
                                      flush)}
+    for tag, rec in stream_rec.items():
+        at_paths[f"stream_{tag}"] = {"general": bench.measure(
+            torch, ola, "general", rec["inputs"], rec["y_padded"], flush)}
     emit("kernels_at_path", card=card, ola=at_paths)
     check_cases([c for v in at_paths.values() for c in v.values()],
                 "kernels_at_path")
 
-    def line(name, c, on_path):
+    def line(name, c, launches):
         return {
             "name": name, "route": "cuda",
             "source": "world_tpu_torch/csrc/ola.cu",
             "replaces": "world_tpu/ops/pallas_ola.py:33",
-            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches": launches,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "device_ms": c["device_ms"], "host_us": c["host_us"],
             "library_device_ms": c["library_device_ms"],
-            "shape": c["shape"], "on_main_path": on_path}
+            "shape": c["shape"], "on_main_path": True}
 
-    at_22k = at_paths["main_22k"]
+    ragged = sum(r["launches"]["ola_accumulate_ragged"]
+                 for r in runs.values())
     print(json.dumps({"kernels": [
-        line("ola_accumulate_ragged", at_22k["ragged"], True),
-        line("ola_accumulate", at_22k["general"], False)]}), flush=True)
+        line("ola_accumulate_ragged", at_paths["main_22k"]["ragged"],
+             ragged),
+        line("ola_accumulate", at_paths["stream_22k"]["general"],
+             sum(general.values()))]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

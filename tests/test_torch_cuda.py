@@ -1,8 +1,10 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
 modes, at every tile, against its plain versions (torch.equal), IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
-card against the goldens, and the batched steps (Harvest and Dio)
-through the kernel.  Each skips without a card.
+card against the goldens, the batched steps (Harvest and Dio) through
+the kernel, float64 streaming against the reference's streaming output
+and span against rows, and chunked Dio analyze_long against
+whole-signal analysis.  Each skips without a card.
 
 This file imports neither jax nor the JAX package and reads the goldens
 itself, so it also runs where JAX is not installed:
@@ -238,3 +240,88 @@ def test_dio_step_on_card(cuda):
     assert ((f0 > 0) == (ref > 0)).mean() > 0.99
     v = (f0 > 0) & (ref > 0)
     assert np.sqrt(np.mean(cents(f0[v], ref[v]) ** 2)) < 1.0
+
+
+def _stream(feed, n_pointers, **kw):
+    """The golden parameters streamed on the card (buffer 64)."""
+    s = W.StreamingSynthesizer(22050, 5.0, 1024, 64, n_pointers,
+                               device="cuda", **kw)
+    out = []
+    for f0, sp, ap in feed:
+        assert s.add_parameters(f0, sp, ap)
+        while s.synthesis2():
+            out.append(s.buffer[:64].copy())
+    s.close()
+    return np.concatenate(out)
+
+
+def _snr_nonzero(ref, y):
+    """SNR over the samples where ``ref`` is nonzero, both cut to the
+    shorter length."""
+    n = min(len(ref), len(y))
+    ref, y = ref[:n], y[:n]
+    v = ref != 0
+    err = np.sum((ref[v] - y[v]) ** 2)
+    return np.inf if err == 0 else 10 * np.log10(np.sum(ref[v] ** 2) / err)
+
+
+def _golden_feed(step):
+    f0, sp, ap = golden("harvest_f0"), golden("cheaptrick_sp"), \
+        golden("d4c_ap")
+    return [(f0[i: i + step], sp[i: i + step], ap[i: i + step])
+            for i in range(0, len(f0), step)]
+
+
+def test_streaming_f64_on_card(cuda):
+    """float64 exact streaming on the card: all at once against
+    synthesis2_y and frame by frame against synthesis3_y, > 80 dB, the
+    span render going through the general-mode kernel."""
+    before = ola_accumulate.launches
+    y = _stream(_golden_feed(10 ** 6), 1)
+    assert ola_accumulate.launches > before
+    assert _snr_nonzero(golden("synthesis2_y"), y) > 80.0
+    y = _stream(_golden_feed(1), 100)
+    assert _snr_nonzero(golden("synthesis3_y"), y) > 80.0
+
+
+def test_streaming_span_matches_rows_on_card(cuda):
+    """The span render (kernel) against rows added on the host, float64,
+    > 200 dB."""
+    feed = _golden_feed(10 ** 6)
+    rows = _stream(feed, 1, span_render=False)
+    assert _snr_nonzero(rows, _stream(feed, 1)) > 200.0
+
+
+def _long_vowelish(fs, seconds, seed=1):
+    """tests/test_longform.py::_long_vowelish (that module imports JAX)."""
+    rng = np.random.RandomState(seed)
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    f0 = 130.0 + 25.0 * np.sin(2 * np.pi * 0.4 * t)
+    phase = np.cumsum(2 * np.pi * f0 / fs)
+    x = np.sin(phase) + 0.4 * np.sin(2 * phase + 0.3) \
+        + 0.15 * np.sin(3 * phase + 1.1) + 0.003 * rng.randn(n)
+    return 0.3 * x / np.abs(x).max()
+
+
+def test_chunked_dio_on_card(cuda):
+    """analyze_long (Dio, 2 s chunks, 0.2 s halo) of 6 s at 16 kHz against
+    whole-signal analysis on the card, at tests/test_longform.py's gates
+    on interior frames."""
+    from world_tpu_torch.parallel import analyze_long
+
+    fs = 16000
+    x = _long_vowelish(fs, 6.0)
+    _, f0_c, sp_c, _ = analyze_long(x, fs, chunk_seconds=2.0,
+                                    halo_seconds=0.2, f0_method="dio",
+                                    batch_lanes=2)
+    p = W.analyze(x, fs, f0_method="dio", device=cuda)
+    f0, sp = p.f0.cpu().numpy(), p.spectrogram.cpu().numpy()
+    interior = np.ones(len(f0), bool)
+    for b in range(0, len(f0), 400):
+        interior[max(0, b - 2): b + 3] = False
+    both = (f0 > 0) & (f0_c > 0) & interior
+    assert both.sum() > len(f0) // 2
+    assert ((f0 > 0) == (f0_c > 0))[interior].mean() > 0.99
+    assert np.percentile(cents(f0_c[both], f0[both]), 95) < 1.0
+    assert np.median(np.abs(10 * np.log10(sp_c[both] / sp[both]))) < 0.1

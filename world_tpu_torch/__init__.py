@@ -2,7 +2,8 @@
 JAX package world_tpu, which stays the reference).
 
 Ported so far: Dio, StoneMask, Harvest, CheapTrick, D4C, Synthesis, the
-codec, wav/parameter I/O and the batched step.  Entry points run on
+streaming synthesizer, the codec, wav/parameter I/O, the batched step
+and long-form analysis/synthesis.  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; with no device given
 and no GPU they raise.  The overlap-add of synthesis is a hand-written
 CUDA kernel (csrc/ola.cu), built with nvcc at first use.
@@ -11,9 +12,11 @@ CUDA kernel (csrc/ola.cu), built with nvcc at first use.
     cheap_trick                        -- spectral envelope
     d4c                                -- band aperiodicity
     synthesis                          -- waveform synthesis
+    StreamingSynthesizer               -- real-time (streaming) synthesis
     code_/decode_spectral_envelope, code_/decode_aperiodicity
     analyze / synthesize               -- full pipeline conveniences
     make_batch_step / get_batch_step   -- batched analysis + synthesis
+    parallel.analyze_long / synthesize_long  -- long-form audio
     io.audio / io.parameterio          -- wav and parameter files
 """
 
@@ -35,13 +38,14 @@ from .models.codec import (code_aperiodicity, code_spectral_envelope,
 from .models.d4c import d4c
 from .models.dio import dio
 from .models.harvest import harvest
+from .models.realtime import StreamingSynthesizer
 from .models.stonemask import stone_mask
 from .models.synthesis import synthesis
 from .parallel.pipeline import get_batch_step, make_batch_step
 
 __all__ = [
     "dio", "stone_mask", "harvest", "cheap_trick", "d4c", "synthesis",
-    "code_aperiodicity", "decode_aperiodicity",
+    "StreamingSynthesizer", "code_aperiodicity", "decode_aperiodicity",
     "code_spectral_envelope", "decode_spectral_envelope",
     "DioOption", "HarvestOption", "CheapTrickOption", "D4COption",
     "analyze", "synthesize", "WorldParameters",

@@ -1,4 +1,5 @@
-"""Device resolution and the IEEE-division helper shared by the port.
+"""Device resolution, host-device copies and the IEEE-division helper
+shared by the port.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present they raise instead of quietly
@@ -35,6 +36,34 @@ def as_tensor(x, device, dtype=None):
     if dtype is None and arr.dtype.kind != "f":
         dtype = torch.float64
     return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def upload(arr, dtype, device):
+    """numpy array -> tensor of ``dtype`` on ``device``.  On a card the
+    copy goes through pinned memory and is non_blocking, so the host does
+    not wait for the work already queued on the stream."""
+    if device.type == "cpu":
+        return torch.as_tensor(arr, dtype=dtype)
+    host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    host.numpy()[...] = arr
+    return host.to(device, non_blocking=True)
+
+
+def download(tensors, device):
+    """Start copying ``tensors`` (on ``device``) to the host: non_blocking
+    into pinned memory, with a CUDA event recorded behind the copies.
+    Returns (host tensors, event); the event is None on the CPU, where
+    the tensors are returned as they are."""
+    if device.type == "cpu":
+        return list(tensors), None
+    host = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return host, event
 
 
 def div(a, c):

@@ -77,17 +77,28 @@ def _seed_bits():
     return bits
 
 
-def states_at_draws(offsets):
+@functools.lru_cache(maxsize=None)
+def _jump_tables(device):
+    """The jump matrices (float32) and the seed's bits on ``device``,
+    uploaded once per device."""
+    return (torch.as_tensor(_jump_matrices(), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(_seed_bits(), device=device))
+
+
+def states_at_draws(offsets, max_offset=None):
     """States (int64 (..., 4) holding uint32 words) positioned just before
-    draw number ``offsets`` (0 = fresh seed)."""
+    draw number ``offsets`` (0 = fresh seed).  ``max_offset``, when the
+    caller knows it on the host, spares reading it from the device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = offsets.device
     offsets = offsets.to(torch.int64)
-    n_bits = max(1, int(offsets.max()).bit_length()) if offsets.numel() else 1
-    mats = torch.as_tensor(_jump_matrices()[:n_bits], dtype=torch.float32,
-                           device=dev)
-    bits = torch.as_tensor(_seed_bits(), device=dev).expand(
-        offsets.shape + (128,))
+    if max_offset is None:
+        max_offset = int(offsets.max()) if offsets.numel() else 0
+    n_bits = max(1, int(max_offset).bit_length())
+    jumps, seed = _jump_tables(dev)
+    mats = jumps[:n_bits]
+    bits = seed.expand(offsets.shape + (128,))
     for b in range(n_bits):
         take = ((offsets >> b) & 1).bool().unsqueeze(-1)
         jumped = torch.remainder(bits @ mats[b].T, 2.0)
@@ -114,20 +125,23 @@ def randn_block(state, n):
     return torch.stack(draws, -1)
 
 
-def randn_blocks_at(offsets, n):
+def randn_blocks_at(offsets, n, bounds=None):
     """For each stream position in ``offsets`` (int (...)), the n draws
     starting there: float64 (..., n).
 
     The span [min, max + n) of the stream is generated once, in lanes of
     _LANE draws that each start from a GF(2) jump, and every block is a
-    window of that span."""
+    window of that span.  ``bounds`` = (min, max) of ``offsets``, when the
+    caller has them on the host, spares reading them from the device."""
     dev = offsets.device
     flat = offsets.reshape(-1).to(torch.int64)
-    lo = int(flat.min())
-    total = int(flat.max()) + n - lo
+    lo, hi = bounds if bounds is not None else (int(flat.min()),
+                                                int(flat.max()))
+    total = hi + n - lo
     n_lanes = -(-total // _LANE)
     starts = lo + torch.arange(n_lanes, device=dev) * _LANE
-    seq = randn_block(states_at_draws(starts), _LANE).reshape(-1)
+    seq = randn_block(states_at_draws(starts, lo + (n_lanes - 1) * _LANE),
+                      _LANE).reshape(-1)
     idx = (flat - lo).unsqueeze(-1) + torch.arange(n, device=dev)
     return seq[idx].reshape(offsets.shape + (n,))
 
