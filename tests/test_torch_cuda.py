@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
-modes, at every tile, against its plain versions (torch.equal), IEEE
+modes, at every tile, and the scan kernel against their plain versions
+(torch.equal), IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
@@ -22,7 +23,7 @@ torch.set_num_threads(1)
 
 import world_tpu_torch as W  # noqa: E402
 from world_tpu_torch.device import div  # noqa: E402
-from world_tpu_torch.ops import ola  # noqa: E402
+from world_tpu_torch.ops import ola, scan  # noqa: E402
 from world_tpu_torch.ops.ola import ola_accumulate, ola_plain  # noqa: E402
 from world_tpu_torch.parallel import pipeline  # noqa: E402
 from world_tpu_torch.tools.ola_bench import TABLE  # noqa: E402
@@ -155,6 +156,27 @@ def test_ola_unknown_tile_raises(cuda):
     out = torch.empty((1, 1000), device=cuda)
     with pytest.raises(RuntimeError, match="cudaError"):
         ola.launch(r, o, rp, out, 1, 4, 512, 1000, tile=333)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_scan_kernel_matches_plain(cuda, dtype):
+    """The scan kernel == its plain version (torch.equal) on rows of 1,
+    1023, 1024, 1025 and 17420 samples, the unvoiced 500 Hz increments
+    at 22.05 kHz among them, and on 16 rows of 33601; the counter
+    counts."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    inc = 2.0 * np.pi * 500.0 / 22050.0
+    for B, L in ((3, 1), (3, 1023), (3, 1024), (3, 1025), (3, 17420),
+                 (16, 33601)):
+        x = torch.rand((B, L), generator=gen, dtype=dt, device=cuda) * 0.3
+        x[0] = inc
+        before = scan.cumsum_rows.launches
+        got = scan.cumsum_rows(x)
+        assert scan.cumsum_rows.launches == before + 1
+        assert torch.equal(got.cpu(), scan.cumsum_rows_plain(x.cpu())), \
+            (B, L)
 
 
 def test_div_on_card_matches_cpu(cuda):
@@ -325,3 +347,96 @@ def test_chunked_dio_on_card(cuda):
     assert ((f0 > 0) == (f0_c > 0))[interior].mean() > 0.99
     assert np.percentile(cents(f0_c[both], f0[both]), 95) < 1.0
     assert np.median(np.abs(10 * np.log10(sp_c[both] / sp[both]))) < 0.1
+
+
+def test_synthesis_f64_on_card_matches_cpu(cuda):
+    """float64 synthesis of the golden Dio track, which opens unvoiced
+    (pulses on rounding ties of the phase sum every 441 samples), on the
+    card against the CPU: the same pulses, so the same exact noise."""
+    f0, sp, ap = golden("dio_f0"), golden("cheaptrick_sp"), golden("d4c_ap")
+    y = [W.synthesis(f0, sp, ap, 22050, device=d).cpu().numpy()
+         for d in (cuda, "cpu")]
+    assert np.abs(y[0] - y[1]).max() < 1e-9
+
+
+def _read_int16(path):
+    import wave
+
+    with wave.open(str(path)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()),
+                             np.int16).astype(np.int64)
+
+
+def test_cli_test_on_card(cuda, tmp_path, monkeypatch):
+    """`test vaiueo2d.wav out.wav 2.0 1.5` on the card in float64: the
+    three wavs within 1 LSB of the reference binary's, < 1% of samples
+    differing, through both modes of the OLA kernel."""
+    from world_tpu_torch.tools import cli
+
+    monkeypatch.delenv(cli.PLATFORM_VAR, raising=False)
+    monkeypatch.chdir(tmp_path)
+    here = os.path.dirname(os.path.abspath(__file__))
+    before = (ola_accumulate.launches, ola.ola_accumulate_ragged.launches)
+    assert cli.main(["test", os.path.join(here, "vaiueo2d.wav"), "out.wav",
+                     "2.0", "1.5"]) == 0
+    assert ola_accumulate.launches > before[0]
+    assert ola.ola_accumulate_ragged.launches > before[1]
+    for v in ("01", "02", "03"):
+        d = _read_int16(tmp_path / f"{v}out.wav") - _read_int16(
+            os.path.join(here, "goldens_manip", f"{v}out.wav"))
+        assert np.abs(d).max() <= 1 and (d != 0).mean() < 0.01
+
+
+def test_batched_corpus_on_card(cuda, tmp_path):
+    """A small two-rate batched corpus run on the card (Dio, codec 32,
+    npz, batches of 2): every file done, the native loader; each batch
+    run again with its rows swapped, and each file alone in a batch of 1,
+    give every file what the runner wrote within CARD_BATCH_ATOL."""
+    from world_tpu_torch import config
+    from world_tpu_torch.io.audio import wavread, wavwrite
+    from world_tpu_torch.io.parameterio import read_npz
+    from world_tpu_torch.utils.corpus import BatchedCorpusRunner
+
+    x22, x48 = golden("x"), np.fromfile(os.path.join(
+        os.path.dirname(GOLDENS), "goldens_fs48", "x.f64"))
+    files = [(22050, x22[:9000]), (48000, x48), (22050, 0.5 * x22),
+             (48000, 1.2 * x48[:20000]), (22050, np.roll(x22, 5000))]
+    paths = []
+    for i, (fs, x) in enumerate(files):
+        p = tmp_path / f"k{i}.wav"
+        wavwrite(x, fs, str(p))
+        paths.append(str(p))
+    m = BatchedCorpusRunner(str(tmp_path / "out"), fs=None,
+                            bucket_seconds=[1.0], batch_size=2,
+                            f0_method="dio", output_format="npz",
+                            codec_dims=32, log=lambda *a: None,
+                            device=cuda).run(paths)
+    assert m["utterances_done"] == 5 and m["loader"] == "native"
+    for fs in (22050, 48000):
+        mine = [p for p, (f, _) in zip(paths, files) if f == fs]
+        step = pipeline.get_batch_step(fs, fs, f0_method="dio",
+                                       with_synthesis=False, codec_dims=32,
+                                       device=cuda)
+        for b0 in range(0, len(mine), 2):
+            rows = np.zeros((2, fs), np.float32)
+            lengths = []
+            for j, p in enumerate(mine[b0:b0 + 2]):
+                x, _, _ = wavread(p)
+                rows[j, :len(x)] = x
+                lengths.append(len(x))
+            swapped = [t.cpu().numpy() for t in step(rows[::-1].copy())[:3]]
+            for j, (p, n) in enumerate(zip(mine[b0:b0 + 2], lengths)):
+                alone = [t[0].cpu().numpy() for t in step(rows[j:j + 1])[:3]]
+                nf = config.get_samples_for_dio(fs, n, 5.0)
+                got = read_npz(str(tmp_path / "out"
+                                   / f"{os.path.basename(p)[:-4]}.npz"))
+                for k, key in enumerate(("f0", "coded_sp", "coded_ap")):
+                    for other in (swapped[k][1 - j], alone[k]):
+                        assert np.abs(got[key] - other[:nf]).max() \
+                            <= CARD_BATCH_ATOL[key], (p, key)
+
+
+# A file in another row or alone against the runner's batch on the card,
+# float32 (max abs difference; f0 in Hz, coded ap in dB): chip_smoke.py's
+# BATCH_ATOL, where their origin is given.
+CARD_BATCH_ATOL = {"f0": 1e-4, "coded_sp": 5e-4, "coded_ap": 0.04}

@@ -2,10 +2,10 @@
 JAX package world_tpu, which stays the reference).
 
 Ported so far: Dio, StoneMask, Harvest, CheapTrick, D4C, Synthesis, the
-streaming synthesizer, the codec, wav/parameter I/O, the batched step
-and long-form analysis/synthesis.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; with no device given
-and no GPU they raise.  The overlap-add of synthesis is a hand-written
+streaming synthesizer, the codec, wav/parameter I/O, the batched step,
+long-form analysis/synthesis, the corpus runner and the command-line
+tools.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no device given and no GPU they raise.  The overlap-add of synthesis is a hand-written
 CUDA kernel (csrc/ola.cu), built with nvcc at first use.
 
     dio, stone_mask, harvest           -- F0 estimation / refinement
@@ -18,6 +18,10 @@ CUDA kernel (csrc/ola.cu), built with nvcc at first use.
     make_batch_step / get_batch_step   -- batched analysis + synthesis
     parallel.analyze_long / synthesize_long  -- long-form audio
     io.audio / io.parameterio          -- wav and parameter files
+    io.native                          -- threaded wav batch loader (g++)
+    utils.corpus                       -- corpus runners (checkpoint/resume)
+    utils.distributed / utils.profiling  -- process groups, traces
+    tools (python -m world_tpu_torch.tools)  -- the reference examples
 """
 
 __version__ = "0.1.0"

@@ -105,10 +105,10 @@ def cheap_trick_batch(x, temporal_positions, f0, fs, fft_size, q1=-0.15,
             draws, -1,
             win_lens[..., None] + torch.arange(half + 1, device=dev))
     elif rng_mode == "fast":
-        win_dither = rng_ops.fast_normal(0, (B, n_frames, fft_size), dtype,
-                                         dev)
-        spec_dither = rng_ops.fast_normal(4, (B, n_frames, half + 1), dtype,
-                                          dev)
+        win_dither = rng_ops.fast_normal(0, (n_frames, fft_size), dtype,
+                                         dev).expand(B, -1, -1)
+        spec_dither = rng_ops.fast_normal(4, (n_frames, half + 1), dtype,
+                                          dev).expand(B, -1, -1)
     elif rng_mode == "none":
         win_dither = torch.zeros((B, n_frames, fft_size), dtype=dtype,
                                  device=dev)

@@ -163,7 +163,8 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
         lt_offsets = torch.cumsum(lt_counts, 1) - lt_counts
         lt_dither = rng_ops.randn_blocks_at(lt_offsets, max_lt).to(dtype)
     elif rng_mode == "fast":
-        lt_dither = rng_ops.fast_normal(1, (B, n_frames, max_lt), dtype, dev)
+        lt_dither = rng_ops.fast_normal(1, (n_frames, max_lt), dtype,
+                                        dev).expand(B, -1, -1)
     elif rng_mode == "none":
         lt_dither = torch.zeros((B, n_frames, max_lt), dtype=dtype,
                                 device=dev)
@@ -192,8 +193,11 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
         body_dither = rng_ops.randn_blocks_at(flat_offsets[passing],
                                               max_body).to(dtype)
     elif rng_mode == "fast":
-        body_dither = rng_ops.fast_normal(2, (n_pass, 3, max_body), dtype,
-                                          dev)
+        # Gathered by frame index, not by rank among the batch's passing
+        # frames, so a frame's draws do not depend on the other rows.
+        frame = torch.arange(n_frames, device=dev).expand(B, n_frames)
+        body_dither = rng_ops.fast_normal(2, (n_frames, 3, max_body), dtype,
+                                          dev)[frame[passing]]
     else:
         body_dither = torch.zeros((n_pass, 3, max_body), dtype=dtype,
                                   device=dev)
@@ -201,7 +205,9 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
                                           (0, fft_d4c - max_body))
     b_max = int(f0_cap * fft_d4c / fs) + 2
     coarse = torch.zeros((B, n_frames, n_bands), dtype=dtype, device=dev)
-    if n_pass:
+    # Below 12 kHz there is no coarse band (fs=8000: n_bands 0); passing
+    # frames then interpolate between the two edge values alone.
+    if n_pass and n_bands:
         coarse[passing] = _d4c_body(
             x, fs, fft_d4c, n_bands, window, window_length, f0_cap, b_max,
             rows[passing], f0_body[passing], temporal_positions[passing],

@@ -5,7 +5,8 @@ accumulation; a pulse wherever the wrapped phase jumps by more than pi).
 For each pulse a minimum-phase periodic response plus a noise-excited
 aperiodic response is rendered, and the responses of the real pulses
 are overlap-added by the port's CUDA kernel in its ragged mode
-(ops/ola.py) for both dtypes.
+(ops/ola.py) for both dtypes.  The phase is summed in the reference's
+order by the port's sequential scan kernel (ops/scan.py).
 
 Where the JAX package compacts pulses with a keyed sort into a
 fixed-capacity array and renders capacity-sized chunks, the port takes
@@ -22,6 +23,7 @@ from ..ops import rng as rng_ops
 from ..ops.common import minimum_phase_spectrum
 from ..ops.matlab import fftshift, interp1
 from ..ops.ola import ola_accumulate_ragged
+from ..ops.scan import cumsum_rows
 
 # Pulses rendered per chunk are bounded so (pulses x fft_size) stays
 # below this many elements per intermediate.
@@ -57,7 +59,10 @@ def _time_base(f0, fs_t, frame_period_s, y_length, lowest_f0):
     ivuv = torch.where(ivuv > 0.5, zero + 1.0, zero)
     if0 = torch.where(ivuv == 0.0, zero + config.K_DEFAULT_F0, if0)
 
-    total_phase = torch.cumsum((2.0 * config.K_PI) * if0 / fs_t, dim=1)
+    increment = (2.0 * config.K_PI) * if0 / fs_t
+    # Summed in the reference's order (ops/scan.py): where the sum ties a
+    # period boundary, its rounding places the pulse.
+    total_phase = cumsum_rows(increment.contiguous())
     wrap_phase = torch.remainder(total_phase, 2.0 * config.K_PI)
     jump = torch.abs(torch.diff(wrap_phase, dim=1))
     is_pulse = jump > config.K_PI  # pulse at sample i, i < y_length-1
@@ -153,8 +158,15 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
         noise = rng_ops.randn_blocks_at(start - start[row_ptr[rows]],
                                         fft_size).to(dtype)
     elif rng_mode == "fast":
-        noise = rng_ops.fast_normal(3, (samples.shape[0], fft_size), dtype,
-                                    dev)
+        # One draw per pulse slot within its row, up to the JAX step's
+        # static pulse capacity (world_tpu/parallel/pipeline.py:198-199),
+        # so a row's noise does not depend on the other rows.  Slots past
+        # it (tracks averaging above 1500 Hz, whose extra pulses the JAX
+        # step drops) reuse the draws cyclically.
+        max_pulses = min(y_length, int(y_length / fs * 1500) + 64)
+        slot = torch.arange(samples.shape[0], device=dev) - row_ptr[rows]
+        noise = rng_ops.fast_normal(3, (max_pulses, fft_size), dtype,
+                                    dev)[slot % max_pulses]
     elif rng_mode == "none":
         noise = torch.zeros((samples.shape[0], fft_size), dtype=dtype,
                             device=dev)

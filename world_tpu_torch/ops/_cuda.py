@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA C++ kernels (csrc/*.cu).
+"""Build and load the port's native libraries: the CUDA C++ kernels
+(csrc/*.cu) and the host wav loader (native/worldio.cpp).
 
-Each source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface, loaded with ctypes.  The build happens at first use,
-from the sources in the package, into ``world_tpu_torch/_build/``; the
-library's name carries a hash of its source and flags, so an edited
-source rebuilds.  Nothing here runs at import time.
+Each source is compiled into a shared library with a plain C interface,
+loaded with ctypes: the kernels with nvcc for sm_90a, the loader with
+g++.  The build happens at first use, from the sources in the package,
+into ``world_tpu_torch/_build/``; the library's name carries a hash of
+its source and flags, so an edited source rebuilds.  Nothing here runs at
+import time.
 """
 
 import ctypes
@@ -34,26 +36,36 @@ def nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def hashed_path(src, flags):
+    """Library path for ``src`` built with ``flags``."""
+    digest = hashlib.sha256(Path(src).read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"lib{Path(src).stem}-{digest[:16]}.so"
+
+
+def compile_shared(compiler, flags, src):
+    """Compile ``src`` with ``compiler`` unless its library is already
+    built.  Returns (library path, compiler log; None when nothing was
+    built).  Raises RuntimeError when the compiler fails, OSError when it
+    cannot be run."""
+    out = hashed_path(src, flags)
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{compiler} failed for {Path(src).name}:\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
 
 
 def build(name):
     """Compile csrc/<name>.cu unless its library is already built.
     Returns (library path, compiler log; None when nothing was built)."""
-    out = library_path(name)
-    if out.exists():
-        return out, None
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return compile_shared(nvcc(), NVCC_FLAGS, CSRC / f"{name}.cu")
 
 
 @functools.lru_cache(maxsize=None)

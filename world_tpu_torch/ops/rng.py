@@ -153,7 +153,11 @@ def randn_sequence(n, device="cpu"):
 
 
 def fast_normal(seed, shape, dtype, device):
-    """Fast-mode normals from an explicit generator seeded with ``seed``."""
+    """Fast-mode normals from an explicit generator seeded with ``seed``.
+
+    Callers draw one utterance's shape (frames or pulse slots), never the
+    batch's, and share it across rows as JAX's vmap shares its draws: a
+    row's output is then a function of that row alone."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return torch.randn(shape, generator=gen, dtype=dtype, device=device)
