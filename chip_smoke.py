@@ -5,7 +5,8 @@
 
 Phases, one JSON line each, in this order:
   device    torch version, card name, nvidia-smi name and power limit
-  build     nvcc builds of every csrc/*.cu kernel, started together
+  build     nvcc builds of every csrc/*.cu kernel and of the dependent-add
+            microbenchmark, started together
   window_starts  fs-derived window positions on the card == on the CPU
   main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
             in float32 fast mode, gated against the C++ goldens;
@@ -86,16 +87,35 @@ Phases, one JSON line each, in this order:
             per wall second, peak device memory, batches; the native
             loader; 4 files' batches rolled by a row, and each file
             alone, within BATCH_ATOL; a second runner skips every file
+  mesh_nccl the mesh on nccl in this process (a world of one rank,
+            make_mesh(1, 1)): the Harvest and Dio (codec 64) steps on the
+            main_*/dio_* batches, analyze_long on longform_check's signal
+            and allreduce_metrics, each bit-equal to the unsharded call;
+            step ms, peak memory, the ragged and scan kernels launched
+  mesh_2rank_card  two ranks spawned on this card over gloo: mesh (1, 2)
+            on the Harvest step (22.05 kHz), mesh (2, 1) on the Dio step
+            with codec 64 (48 kHz), mesh (1, 2) on the Dio analysis step
+            (codec 64, 4 s rows at 48 kHz): sharded against unsharded
+            within BATCH_ATOL and y above 60 dB, shard shapes, one
+            all_gather per synthesis step and none in the analysis step,
+            the analysis step's per-rank peak below the unsharded one's,
+            the kernels launched and equal to their plain versions on the
+            recorded inputs; step ms, the gather's ms
+  scaling   `python -m world_tpu_torch.tools scaling --devices 1,2
+            --seconds 1 --iters 3`: two rows (the second two ranks on
+            this card: contention, not scaling)
   kernels_at_path  both modes on the offsets and row_ptr the four path
             runs (main_*, dio_*) gave the ragged kernel, and the general
             mode on one stream_f32 span render's inputs at each rate
   scan_kernel  the sequential scan kernel (synthesis's phase sum) on the
             increments the four path runs (float32) and cli_manip
             (float64) gave it, against its plain version (torch.equal),
-            with its times, torch.cumsum's, and the bound
+            with its times, torch.cumsum's, the bound, and the chain bound
+            (row length x the latency of one dependent double add,
+            world_tpu_torch/tools/dadd_chain.cu)
 Then the kernels summary line (ragged and scan launches summed over the
-four batch runs and the cli_* phases, general launches over the
-streaming, long-form and cli_* phases),
+four batch runs, the cli_* phases and the mesh phases, general launches
+over the streaming, long-form and cli_* phases),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -104,6 +124,7 @@ without the repository around it, it exits non-zero at once.
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import sys
 import tempfile
@@ -187,22 +208,9 @@ def drive(torch, ola, step, fresh):
     steps, the counts read, and three stage-timed steps.  Returns (the
     last timed step's outputs, step seconds, launches, stage ms,
     recorded inputs)."""
-    from world_tpu_torch.models import synthesis
-
-    real = synthesis.ola_accumulate_ragged
     recorded = {}
-
-    def record(responses, offsets, row_ptr, *, y_padded):
-        recorded.update(inputs=(responses, offsets, row_ptr),
-                        y_padded=y_padded)
-        return real(responses, offsets, row_ptr, y_padded=y_padded)
-
-    synthesis.ola_accumulate_ragged = record
-    try:
-        with recording_scan(recorded):
-            step(fresh())                           # warm-up
-    finally:
-        synthesis.ola_accumulate_ragged = real
+    with recording_ola(recorded), recording_scan(recorded):
+        step(fresh())                               # warm-up
     torch.cuda.synchronize()
     for k in all_kernels(ola):
         k.launches = 0
@@ -223,6 +231,27 @@ def drive(torch, ola, step, fresh):
     stage_ms = {s: float(np.median([t[s] for t in stages]))
                 for s in stages[0]}
     return outs, times, launches, stage_ms, recorded
+
+
+@contextlib.contextmanager
+def recording_ola(recorded):
+    """Within the block, synthesis's calls of the ragged overlap-add leave
+    their inputs in ``recorded["inputs"]`` and ``recorded["y_padded"]``
+    (the last call's)."""
+    from world_tpu_torch.models import synthesis
+
+    real = synthesis.ola_accumulate_ragged
+
+    def record(responses, offsets, row_ptr, *, y_padded):
+        recorded.update(inputs=(responses, offsets, row_ptr),
+                        y_padded=y_padded)
+        return real(responses, offsets, row_ptr, y_padded=y_padded)
+
+    synthesis.ola_accumulate_ragged = record
+    try:
+        yield recorded
+    finally:
+        synthesis.ola_accumulate_ragged = real
 
 
 @contextlib.contextmanager
@@ -1260,6 +1289,349 @@ def corpus_batched(torch, W, tmp, paths, audio_s):
 BATCH_ATOL = {"f0": 1e-4, "coded_sp": 5e-4, "coded_ap": 0.04}
 
 
+# The mesh phases' step configurations: (tag, goldens, F0 method,
+# codec_dims, with_synthesis).
+MESH_STEPS = (("harvest_22k", "goldens", "harvest", None, True),
+              ("harvest_48k", "goldens_fs48", "harvest", None, True),
+              ("dio_22k", "goldens", "dio", CODEC_DIMS, True),
+              ("dio_48k", "goldens_fs48", "dio", CODEC_DIMS, True))
+
+
+def golden_batch(torch, gold, seconds=None):
+    """(fs, batch): main_path's and dio_path's first batch of 16 from the
+    golden utterance of tests/<gold>/, tiled to ``seconds`` if given."""
+    get, sc = load_goldens(gold)
+    x = get("x").astype(np.float32)
+    if seconds is not None:
+        n = int(seconds * sc["fs"])
+        x = np.tile(x, -(-n // len(x)))[:n]
+    return sc["fs"], batch_maker(torch, x)()
+
+
+def timed(torch, fn, reps=3):
+    """(last result, wall ms of each of ``reps`` synchronized calls)."""
+    out, times = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def mesh_nccl(torch, W, ola, tmp):
+    """The mesh on nccl in this process: a world of one rank,
+    make_mesh(1, 1), the Harvest and Dio (codec 64) steps on the golden
+    batches at full width, analyze_long on longform_check's signal and
+    allreduce_metrics, each bit-equal to the unsharded call."""
+    import torch.distributed as dist
+
+    from world_tpu_torch.parallel import analyze_long, pipeline
+    from world_tpu_torch.utils import distributed
+
+    t_phase = time.perf_counter()
+    distributed.initialize(f"file://{tmp / 'nccl_store'}", 1, 0,
+                           device="cuda")
+    res, launches = {}, {k.__name__: 0 for k in all_kernels(ola)}
+    try:
+        backend = dist.get_backend()
+        mesh = pipeline.make_mesh(1, 1)
+        for tag, gold, method, codec_dims, synth in MESH_STEPS:
+            fs, xb = golden_batch(torch, gold)
+            kw = dict(rng_mode="fast", f0_method=method,
+                      codec_dims=codec_dims, with_synthesis=synth)
+            want = W.make_batch_step(fs, xb.shape[1], device="cuda",
+                                     **kw)(xb)
+            step = W.make_batch_step(fs, xb.shape[1], mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(ola)
+            shard, times = timed(torch, lambda: step(xb))
+            counts = read_counts(ola)
+            peak = torch.cuda.max_memory_allocated() - base
+            got = pipeline.gather_outputs(shard, mesh)
+            for k, v in counts.items():
+                launches[k] += v
+            res[tag] = {
+                "step_ms": times, "peak_bytes_over_base": peak,
+                "launches": counts,
+                "equal": [bool(torch.equal(a, b)) for a, b in zip(got,
+                                                                  want)]}
+        x = long_vowelish(16000, 12.0)
+        kw = dict(chunk_seconds=4.0, halo_seconds=0.2, f0_method="dio")
+        long_m = analyze_long(x, 16000, mesh=mesh, **kw)
+        long_u = analyze_long(x, 16000, device="cuda", **kw)
+        res["analyze_long_equal"] = [bool(np.array_equal(a, b))
+                                     for a, b in zip(long_m, long_u)]
+        voiced = float((long_m[1] > 0).sum())
+        res["allreduce_metrics"] = distributed.allreduce_metrics(
+            {"voiced_frames": voiced, "note": "dropped"}, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    emit("mesh_nccl", seconds=time.perf_counter() - t_phase,
+         backend=backend, mesh=[1, 1], **res)
+    check(backend == "nccl", f"mesh_nccl: backend {backend}")
+    for tag, *_ in MESH_STEPS:
+        check(all(res[tag]["equal"]),
+              f"mesh_nccl {tag}: sharded != unsharded {res[tag]['equal']}")
+        for k in path_kernels(ola):
+            check(res[tag]["launches"][k.__name__] > 0,
+                  f"mesh_nccl {tag}: {k.__name__} never launched")
+    check(all(res["analyze_long_equal"]),
+          f"mesh_nccl analyze_long: {res['analyze_long_equal']}")
+    check(res["allreduce_metrics"] == {"voiced_frames": voiced},
+          f"mesh_nccl allreduce_metrics: {res['allreduce_metrics']}")
+    return launches
+
+
+def mesh_cases(n):
+    """The cases of a mesh phase of ``n`` ranks (n divides 16): (tag,
+    goldens, seconds or None, F0 method, codec_dims, with_synthesis,
+    mesh shape).  The analysis case is the corpus runner's step
+    configuration on 4 s rows."""
+    return (("harvest_22k", "goldens", None, "harvest", None, True,
+             (n // 2, 2)),
+            ("dio_48k", "goldens_fs48", None, "dio", CODEC_DIMS, True,
+             (n, 1)),
+            ("dio_analysis_48k_4s", "goldens_fs48", 4.0, "dio", CODEC_DIMS,
+             False, (1, n)))
+
+
+def _mesh_rank(rank, world, store, out_dir, backend):
+    """One rank of a mesh phase, on card rank % cards over ``backend``.
+    Per case of mesh_cases(world): the unsharded step, then the sharded
+    one (its all_gather calls counted, its kernels' inputs recorded),
+    their peak memory over the baseline and step ms, and the gathered
+    outputs against the unsharded ones.  Writes rank<rank>.json to
+    ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    import world_tpu_torch as W
+    from world_tpu_torch.models import codec
+    from world_tpu_torch.ops import ola, scan
+    from world_tpu_torch.parallel import pipeline
+    from world_tpu_torch.utils import distributed
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"file://{store}", world, rank, device="cuda",
+                           backend=backend)
+    gathers = [0]
+    real_all_gather = dist.all_gather
+
+    def counting(*a, **k):
+        gathers[0] += 1
+        return real_all_gather(*a, **k)
+
+    res = {"rank": rank, "backend": dist.get_backend(), "cases": {}}
+    dist.all_gather = counting
+    try:
+        meshes = {}
+        for tag, gold, seconds, method, codec_dims, synth, shape in \
+                mesh_cases(world):
+            if shape not in meshes:
+                meshes[shape] = pipeline.make_mesh(*shape)
+            mesh = meshes[shape]
+            fs, xb = golden_batch(torch, gold, seconds)
+            n = xb.shape[1]
+            kw = dict(rng_mode="fast", f0_method=method,
+                      codec_dims=codec_dims, with_synthesis=synth)
+            plain = W.make_batch_step(fs, n, device="cuda", **kw)
+            sharded = W.make_batch_step(fs, n, mesh=mesh, **kw)
+            plain(xb)                                    # warm-up
+            sharded(xb)
+
+            def peak_over_base(step):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step(xb)
+                torch.cuda.synchronize()
+                return torch.cuda.max_memory_allocated() - base
+
+            plain_peak = peak_over_base(plain)
+            gathers[0] = 0
+            peak = peak_over_base(sharded)
+            n_gathers = gathers[0]
+            want, plain_ms = timed(torch, lambda: plain(xb))
+            zero_counts(ola)
+            recorded = {}
+            with recording_ola(recorded), recording_scan(recorded):
+                shard, ms = timed(torch, lambda: sharded(xb))
+            launches = read_counts(ola)
+            fft = W.get_fft_size_for_cheaptrick(fs)
+
+            def coded(outs):   # held to BATCH_ATOL through the codec
+                f0, sp, ap, y = outs
+                if codec_dims is None:
+                    sp = codec.code_spectral_envelope_batch(
+                        sp, fs, fft, CODEC_DIMS)
+                    ap = codec.code_aperiodicity_batch(ap, fs, fft)
+                return [f0, sp, ap, y]
+
+            def max_abs(a, b):
+                return {k: float((u - v).abs().max())
+                        for k, u, v in zip(("f0", "coded_sp", "coded_ap",
+                                            "y"), a, b) if u is not None}
+
+            got = coded(pipeline.gather_outputs(shard, mesh))
+            want = coded(want)
+            # The unsharded step on this rank's rows alone, cut to its
+            # frames: what the shard computes, less the rounding of the
+            # 16-row batch's shapes.
+            rows = BATCH // shape[0]
+            d_rank = mesh.get_local_rank("data")
+            lo, _, real = pipeline.frame_split(
+                W.get_samples_for_dio(fs, n, 5.0), shape[1],
+                mesh.get_local_rank("frame"))
+            f0_m, sp_m, ap_m, y_m = plain(
+                xb[d_rank * rows:(d_rank + 1) * rows])
+            mine = coded([f0_m[:, lo:lo + real], sp_m[:, lo:lo + real],
+                          ap_m[:, lo:lo + real], y_m])
+            case = {
+                "mesh": list(shape), "step_ms": ms, "plain_step_ms": plain_ms,
+                "gathers_per_step": n_gathers, "launches": launches,
+                "shard_shapes": [None if t is None else list(t.shape)
+                                 for t in shard],
+                "peak_bytes": peak, "plain_peak_bytes": plain_peak,
+                "max_abs_diff": max_abs(got[:3], want[:3]),
+                "same_rows_max_abs_diff": max_abs(coded(shard), mine)}
+            if synth:
+                y, y_ref = got[3].double(), want[3].double()
+                case["y_snr_db"] = min(
+                    snr_db(r.cpu().numpy(), v.cpu().numpy())
+                    for r, v in zip(y_ref, y))
+                resp, offs, row_ptr = recorded["inputs"]
+                yp = recorded["y_padded"]
+                case["replay_max_abs_err"] = {
+                    "ola_accumulate_ragged": float((
+                        ola.ola_accumulate_ragged(resp, offs, row_ptr,
+                                                  y_padded=yp)
+                        - ola.ola_ragged_plain(resp, offs, row_ptr, yp)
+                    ).abs().max()),
+                    "cumsum_rows": float((
+                        scan.cumsum_rows(recorded["scan"])
+                        - scan.cumsum_rows_plain(recorded["scan"])
+                    ).abs().max())}
+            if shape[1] > 1 and synth:
+                # The step's gather alone: its packed (rows, frames per
+                # rank, 2K+1) float32 buffer over the mesh's backend.
+                per = pipeline.frame_split(
+                    W.get_samples_for_dio(fs, n, 5.0), shape[1], 0)[1]
+                buf = torch.zeros(BATCH // shape[0], per, fft + 3,
+                                  device="cuda")
+                parts = [torch.empty_like(buf) for _ in range(shape[1])]
+                _, g_ms = timed(torch, lambda: real_all_gather(
+                    parts, buf, group=mesh.get_group("frame")), reps=5)
+                case["gather_buffer"] = list(buf.shape)
+                case["gather_ms"] = g_ms
+            res["cases"][tag] = case
+    finally:
+        dist.all_gather = real_all_gather
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def mesh_ranks(ola, tmp, phase, world, backend):
+    """``world`` ranks spawned after the kernels are built, over
+    ``backend``, one per card while there are cards, else sharing them.
+    mesh_cases(world): the Harvest step with synthesis at mesh
+    (world/2, 2) (22.05 kHz, F = 159, odd: the pad is used), the Dio step
+    with codec 64 (48 kHz) at (world, 1), the Dio analysis step (codec
+    64) on 4 s rows at 48 kHz at (1, world).  Sharded against unsharded
+    within BATCH_ATOL (cuFFT's rounding at another batch shape) and y
+    above 60 dB SNR; each rank's shard shape; one all_gather per
+    synthesis step with frames sharded and none otherwise; the analysis
+    step's per-rank peak below the unsharded one's; the ragged and scan
+    kernels launched and equal to their plain versions on the recorded
+    inputs."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    d = tmp / phase
+    d.mkdir()
+    mp.spawn(_mesh_rank, args=(world, str(d / "store"), str(d), backend),
+             nprocs=world, join=True)
+    ranks = [json.loads((d / f"rank{r}.json").read_text())
+             for r in range(world)]
+    launches = {k.__name__: sum(c["launches"][k.__name__]
+                                for r in ranks for c in r["cases"].values())
+                for k in all_kernels(ola)}
+    summary = {}
+    for tag, *_ in mesh_cases(world):
+        cases = [r["cases"][tag] for r in ranks]
+        summary[tag] = {
+            "max_abs_diff": {k: max(c["max_abs_diff"][k] for c in cases)
+                             for k in BATCH_ATOL},
+            "atol": BATCH_ATOL,
+            "peak_ratio": [c["peak_bytes"] / c["plain_peak_bytes"]
+                           for c in cases]}
+    emit(phase, seconds=time.perf_counter() - t_phase,
+         backend=[r["backend"] for r in ranks], summary=summary,
+         ranks=ranks, launches=launches)
+    for r in ranks:
+        check(r["backend"] == backend, f"{phase}: {r['backend']}")
+        for tag, *_, synth, shape in mesh_cases(world):
+            c = r["cases"][tag]
+            what = f"{phase} rank {r['rank']} {tag}"
+            for k, lim in BATCH_ATOL.items():
+                check(c["max_abs_diff"][k] <= lim,
+                      f"{what}: {k} {c['max_abs_diff'][k]} > {lim}")
+            rows = BATCH // shape[0]
+            check(c["gathers_per_step"] == (1 if synth and shape[1] > 1
+                                            else 0),
+                  f"{what}: {c['gathers_per_step']} all_gather per step")
+            sizes = c["shard_shapes"]
+            check(sizes[0][0] == rows and sizes[1][:2] == sizes[0]
+                  and sizes[2][:2] == sizes[0],
+                  f"{what}: shard shapes {sizes}")
+            if synth:
+                check(c["y_snr_db"] > 60.0, f"{what}: y {c['y_snr_db']} dB")
+                for k in path_kernels(ola):
+                    check(c["launches"][k.__name__] > 0,
+                          f"{what}: {k.__name__} never launched")
+                check(all(v == 0.0 for v in
+                          c["replay_max_abs_err"].values()),
+                      f"{what}: kernel != plain {c['replay_max_abs_err']}")
+            else:
+                check(sizes[3] is None, f"{what}: y returned")
+                check(c["peak_bytes"] < c["plain_peak_bytes"],
+                      f"{what}: peak {c['peak_bytes']} not below the "
+                      f"unsharded {c['plain_peak_bytes']}")
+    return launches
+
+
+def scaling_phase(torch, sizes=(1, 2)):
+    """`python -m world_tpu_torch.tools scaling --devices 1,2 --seconds 1
+    --iters 3` on the card: one row per mesh size (on one card the second
+    is two ranks sharing it over gloo: contention, not scaling; not
+    gated on efficiency)."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "world_tpu_torch.tools", "scaling",
+         "--devices", ",".join(map(str, sizes)), "--seconds", "1",
+         "--iters", "3"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"scaling: rc {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("scaling", seconds=time.perf_counter() - t0, result=rec)
+    check(rec["metric"] == "scaling_efficiency" and rec["platform"] == "gpu",
+          f"scaling: {rec}")
+    check([r["devices"] for r in rec["rows"]] == list(sizes),
+          f"scaling: rows {rec['rows']}")
+    check(rec["rows"][0]["efficiency"] == 1.0
+          and all(r["throughput_xrt"] > 0 for r in rec["rows"]),
+          f"scaling: {rec['rows']}")
+
+
 def all_kernels(ola):
     """Every kernel wrapper of the port (each counts its launches)."""
     from world_tpu_torch.ops import scan
@@ -1308,9 +1680,13 @@ def main():
 
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _cuda.CSRC.glob("*.cu"))
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        logs = dict(zip(sources, pool.map(_cuda.build, sources)))
-    emit("build", seconds=time.perf_counter() - t0, sources=sources,
+    # The kernels and the dependent-add microbenchmark, built together.
+    builds = {s: functools.partial(_cuda.build, s) for s in sources}
+    builds["dadd_chain"] = scan_bench.build_dadd
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(f) for k, f in builds.items()}
+        logs = {k: f.result() for k, f in futures.items()}
+    emit("build", seconds=time.perf_counter() - t0, sources=sorted(builds),
          ptxas={k: [ln for ln in (v[1] or "").splitlines()
                     if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()})
@@ -1356,6 +1732,15 @@ def main():
         paths, audio_s = make_corpus(tmp / "corpus")
         corpus_ref(W, tmp, paths)
         corpus_batched(torch, W, tmp, paths, audio_s)
+
+        # The mesh: nccl in this process (a world of one), two ranks on
+        # this card over gloo, and the CLI's scaling.  Counts set to 0
+        # before each step and read after it (in the ranks for the
+        # two-rank phase).
+        mesh_runs = {"mesh_nccl": mesh_nccl(torch, W, ola, tmp),
+                     "mesh_2rank_card": mesh_ranks(
+                         ola, tmp, "mesh_2rank_card", 2, "gloo")}
+        scaling_phase(torch)
 
     # Kernel timing (torch.profiler) comes after the main-path steps, so
     # that the steps' host-bound times see no profiler state.  Both modes
@@ -1422,7 +1807,8 @@ def main():
 
     def path_launches(name):
         return (sum(r["launches"][name] for r in runs.values())
-                + sum(c[name] for c in cli_runs.values()))
+                + sum(c[name] for c in cli_runs.values())
+                + sum(m[name] for m in mesh_runs.values()))
 
     general_total = sum(general.values()) + sum(
         c["ola_accumulate"] for c in cli_runs.values())
@@ -1432,9 +1818,12 @@ def main():
         line("ola_accumulate", at_paths["stream_22k"]["general"],
              general_total),
         # No Pallas kernel: the JAX time base's jnp.cumsum.
-        line("cumsum_rows", scans["main_22k"], path_launches("cumsum_rows"),
-             source="world_tpu_torch/csrc/scan.cu",
-             replaces="world_tpu/models/synthesis.py:53")]}), flush=True)
+        dict(line("cumsum_rows", scans["main_22k"],
+                  path_launches("cumsum_rows"),
+                  source="world_tpu_torch/csrc/scan.cu",
+                  replaces="world_tpu/models/synthesis.py:53"),
+             chain_bound_ms=scans["main_22k"]["chain_bound_ms"])]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,11 +93,12 @@ def test_verify_passes(on_cpu, capsys):
 
 
 def test_usage_and_device_selection(on_cpu, monkeypatch, capsys):
-    """No subcommand prints the usage; "scaling" waits for the mesh; the
-    CLI runs on the card unless WORLD_TPU_PLATFORM says cpu."""
+    """No subcommand prints the usage; every JAX subcommand is there,
+    "scaling" included (tests/test_torch_mesh.py runs it); the CLI runs
+    on the card unless WORLD_TPU_PLATFORM says cpu."""
     assert cli.main([]) == 1 and "f0analysis" in capsys.readouterr().out
-    assert "scaling" not in cli.COMMANDS
-    assert set(cli.COMMANDS) == set(jax_cli.COMMANDS) - {"scaling"}
+    assert "scaling" in cli.COMMANDS
+    assert set(cli.COMMANDS) == set(jax_cli.COMMANDS)
     monkeypatch.setenv(cli.PLATFORM_VAR, "tpu")
     with pytest.raises(ValueError):
         cli.main(["f0analysis", WAV])

@@ -104,7 +104,8 @@ def test_corpus_records_failures(tmp_path):
 def test_allreduce_metrics():
     m = distributed.allreduce_metrics({"frames": 100, "note": "x"})
     assert m == {"frames": 100.0}
-    with pytest.raises(NotImplementedError):
+    # A mesh must come from make_mesh (tests/test_torch_mesh.py).
+    with pytest.raises(TypeError):
         distributed.allreduce_metrics({"frames": 1}, mesh=object())
 
 
@@ -334,7 +335,7 @@ def test_batched_corpus_rejects_ambiguous_rate_config(tmp_path,
         BatchedCorpusRunner(str(tmp_path / "a"), device="cpu")
     with pytest.raises(ValueError):
         BatchedCorpusRunner(str(tmp_path / "b"), fs=None, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         BatchedCorpusRunner(str(tmp_path / "c"), 16000, [4000],
                             mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -163,7 +163,9 @@ def test_at_most_two_batches_in_flight(monkeypatch):
 
 
 def test_unported_mesh_and_device_selection(monkeypatch):
-    with pytest.raises(NotImplementedError):
+    """A mesh must come from make_mesh (tests/test_torch_mesh.py runs the
+    real one); with no device given and no GPU, the entry points raise."""
+    with pytest.raises(TypeError):
         analyze_long(np.zeros(16000), FS, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -174,10 +176,10 @@ def test_unported_mesh_and_device_selection(monkeypatch):
 
 
 def test_exports():
-    """world_tpu.parallel's names, less make_mesh (multi-device)."""
+    """world_tpu.parallel's names, make_mesh included."""
     from world_tpu import parallel as jax_parallel
 
-    assert set(parallel.__all__) == set(jax_parallel.__all__) - {"make_mesh"}
+    assert parallel.__all__ == jax_parallel.__all__
     for name in parallel.__all__:
         assert callable(getattr(parallel, name))
     assert W.StreamingSynthesizer.__name__ in W.__all__

@@ -162,10 +162,11 @@ def test_batch_step_fast_mode(gold, x_fs):
 
 
 def test_unported_options_raise(x_fs):
-    """Only the device mesh is still unported; a bad F0 method or batch
-    shape raises ValueError."""
+    """A mesh that is not make_mesh's raises TypeError (the mesh itself
+    runs in tests/test_torch_mesh.py); a bad F0 method or batch shape
+    raises ValueError."""
     _, fs = x_fs
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         pipeline.make_batch_step(fs, 4000, device="cpu", mesh=object())
     with pytest.raises(ValueError):
         pipeline.make_batch_step(fs, 4000, device="cpu", f0_method="yin")

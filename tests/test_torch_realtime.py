@@ -395,12 +395,12 @@ def test_device_selection(gold, monkeypatch):
 
 
 def test_constructor_matches_jax():
-    """The JAX package's arguments and defaults, less param_ring_rows,
-    plus device."""
+    """The JAX package's arguments and defaults (param_ring_rows
+    accepted as a no-op), plus device."""
     mine = inspect.signature(StreamingSynthesizer).parameters
     theirs = inspect.signature(
         jax_realtime.StreamingSynthesizer).parameters
-    assert set(mine) == (set(theirs) - {"param_ring_rows"}) | {"device"}
+    assert set(mine) == set(theirs) | {"device"}
     for name, p in theirs.items():
         if name in mine:
             assert mine[name].default == p.default, name

@@ -102,3 +102,35 @@ def test_high_f0_renders_every_pulse(params):
                   device="cpu").numpy()
     want = np.asarray(jax_synthesis(f0 * 8.0, sp, ap, fs, rng_mode="exact"))
     assert snr_db(want, y) > 200.0, snr_db(want, y)
+
+
+def test_max_pulses_capacity_matches_jax(params):
+    """``max_pulses`` is the JAX capacity: with k = 50 of the track's
+    ~170 pulses, the pulses past it are dropped, and the port equals
+    JAX's synthesis(..., max_pulses=50) at the golden gate (rng_mode
+    "none", float64).  JAX leaves the window of its last kept pulse
+    non-finite (its noise length wraps past the cut to the first pulse
+    and comes out negative), so the gate reads JAX's finite samples and
+    the port's window is held to its own untruncated render; a capacity
+    above the pulse count changes nothing."""
+    f0, sp, ap, fs = params
+    k, fft = 50, 2 * (sp.shape[1] - 1)
+    y = synthesis(f0, sp, ap, fs, max_pulses=k, rng_mode="none",
+                  device="cpu").numpy()
+    want = np.asarray(jax_synthesis(f0, sp, ap, fs, max_pulses=k,
+                                    rng_mode="none"))
+    full = synthesis(f0, sp, ap, fs, rng_mode="none", device="cpu").numpy()
+    assert np.isfinite(y).all()
+    bad = np.flatnonzero(~np.isfinite(want))
+    assert 0 < len(bad) <= fft and bad[-1] - bad[0] == len(bad) - 1
+    ok = np.isfinite(want)
+    assert snr_db(want[ok], y[ok]) > 200.0, snr_db(want[ok], y[ok])
+    # Dropped: nothing after the last kept pulse's window, where the
+    # untruncated render goes on.
+    assert not y[bad[-1] + 1:].any() and full[bad[-1] + 1:].any()
+    # The first dropped pulse comes after the last kept one, so its
+    # window starts past the kept one's: up to there both renders agree.
+    np.testing.assert_array_equal(y[:bad[0] + 1], full[:bad[0] + 1])
+    roomy = synthesis(f0, sp, ap, fs, max_pulses=len(y), rng_mode="none",
+                      device="cpu").numpy()
+    np.testing.assert_array_equal(roomy, full)

@@ -1,10 +1,10 @@
 """world_tpu_torch: the WORLD vocoder on PyTorch and CUDA (port of the
 JAX package world_tpu, which stays the reference).
 
-Ported so far: Dio, StoneMask, Harvest, CheapTrick, D4C, Synthesis, the
+Ported: Dio, StoneMask, Harvest, CheapTrick, D4C, Synthesis, the
 streaming synthesizer, the codec, wav/parameter I/O, the batched step,
-long-form analysis/synthesis, the corpus runner and the command-line
-tools.  Entry points run on ``cuda`` unless the caller passes
+long-form analysis/synthesis, the corpus runner, the command-line tools
+and the ('data', 'frame') mesh on torch.distributed.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no device given and no GPU they raise.  The overlap-add of synthesis is a hand-written
 CUDA kernel (csrc/ola.cu), built with nvcc at first use.
 
@@ -17,6 +17,7 @@ CUDA kernel (csrc/ola.cu), built with nvcc at first use.
     analyze / synthesize               -- full pipeline conveniences
     make_batch_step / get_batch_step   -- batched analysis + synthesis
     parallel.analyze_long / synthesize_long  -- long-form audio
+    parallel.make_mesh                 -- the ('data', 'frame') mesh
     io.audio / io.parameterio          -- wav and parameter files
     io.native                          -- threaded wav batch loader (g++)
     utils.corpus                       -- corpus runners (checkpoint/resume)

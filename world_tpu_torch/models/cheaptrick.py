@@ -76,9 +76,13 @@ def f0_cap_for(f0_ceil):
 
 
 def cheap_trick_batch(x, temporal_positions, f0, fs, fft_size, q1=-0.15,
-                      rng_mode="exact", f0_cap=config.K_CEIL_F0 * 1.1):
+                      rng_mode="exact", f0_cap=config.K_CEIL_F0 * 1.1,
+                      frames=None):
     """CheapTrick over B utterances: x (B, L); temporal_positions and f0
-    (B, F).  Returns (B, F, fft_size//2 + 1)."""
+    (B, F).  ``frames`` = (offset, total) says the F columns are frames
+    offset.. of utterances of ``total`` frames (a frame shard; fast mode
+    only), so they draw the dither those frames draw unsharded.
+    Returns (B, F, fft_size//2 + 1)."""
     dtype, dev = x.dtype, x.device
     B, n_frames = f0.shape
     half = fft_size // 2
@@ -105,10 +109,10 @@ def cheap_trick_batch(x, temporal_positions, f0, fs, fft_size, q1=-0.15,
             draws, -1,
             win_lens[..., None] + torch.arange(half + 1, device=dev))
     elif rng_mode == "fast":
-        win_dither = rng_ops.fast_normal(0, (n_frames, fft_size), dtype,
-                                         dev).expand(B, -1, -1)
-        spec_dither = rng_ops.fast_normal(4, (n_frames, half + 1), dtype,
-                                          dev).expand(B, -1, -1)
+        win_dither = rng_ops.fast_normal_frames(
+            0, n_frames, (fft_size,), dtype, dev, frames).expand(B, -1, -1)
+        spec_dither = rng_ops.fast_normal_frames(
+            4, n_frames, (half + 1,), dtype, dev, frames).expand(B, -1, -1)
     elif rng_mode == "none":
         win_dither = torch.zeros((B, n_frames, fft_size), dtype=dtype,
                                  device=dev)

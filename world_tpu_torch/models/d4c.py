@@ -128,10 +128,11 @@ def _d4c_body(x, fs, fft_size, n_bands, window, window_length, f0_cap,
 
 def d4c_batch(x, temporal_positions, f0, fs, fft_size,
               threshold=config.K_THRESHOLD, rng_mode="exact",
-              f0_cap=config.K_CEIL_F0 * 1.1):
+              f0_cap=config.K_CEIL_F0 * 1.1, frames=None):
     """D4C over B utterances: x (B, L); temporal_positions and f0 (B, F).
-    fft_size is the OUTPUT resolution (CheapTrick's).  Returns the
-    aperiodicity (B, F, fft_size//2+1)."""
+    fft_size is the OUTPUT resolution (CheapTrick's).  ``frames`` as in
+    cheap_trick_batch (a frame shard's place in its utterances).  Returns
+    the aperiodicity (B, F, fft_size//2+1)."""
     dtype, dev = x.dtype, x.device
     B, n_frames = f0.shape
     half_out = fft_size // 2
@@ -163,8 +164,8 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
         lt_offsets = torch.cumsum(lt_counts, 1) - lt_counts
         lt_dither = rng_ops.randn_blocks_at(lt_offsets, max_lt).to(dtype)
     elif rng_mode == "fast":
-        lt_dither = rng_ops.fast_normal(1, (n_frames, max_lt), dtype,
-                                        dev).expand(B, -1, -1)
+        lt_dither = rng_ops.fast_normal_frames(
+            1, n_frames, (max_lt,), dtype, dev, frames).expand(B, -1, -1)
     elif rng_mode == "none":
         lt_dither = torch.zeros((B, n_frames, max_lt), dtype=dtype,
                                 device=dev)
@@ -196,8 +197,8 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
         # Gathered by frame index, not by rank among the batch's passing
         # frames, so a frame's draws do not depend on the other rows.
         frame = torch.arange(n_frames, device=dev).expand(B, n_frames)
-        body_dither = rng_ops.fast_normal(2, (n_frames, 3, max_body), dtype,
-                                          dev)[frame[passing]]
+        body_dither = rng_ops.fast_normal_frames(
+            2, n_frames, (3, max_body), dtype, dev, frames)[frame[passing]]
     else:
         body_dither = torch.zeros((n_pass, 3, max_body), dtype=dtype,
                                   device=dev)

@@ -166,7 +166,7 @@ class StreamingSynthesizer:
     (reference src/world/synthesisrealtime.h, src/synthesisrealtime.cpp),
     rendering on ``device`` (the GPU unless given).
 
-    Arguments are the JAX package's except its ``param_ring_rows``:
+    Arguments are the JAX package's, plus ``device``:
     ``lookahead_pulses`` future pulses are rendered per dispatch and
     cached, so one render covers many windows; ahead-only renders wait
     for ``dispatch_min_pulses`` pulses (doubling from 1 at the start of a
@@ -176,14 +176,16 @@ class StreamingSynthesizer:
     adds batches of at least ``span_min_pulses`` pulses on the device
     (False keeps the per-pulse rows, added on the host);
     ``device_params`` ("auto": float32 only) keeps each chunk's
-    parameter rows on the device and interpolates them there."""
+    parameter rows on the device and interpolates them there.
+    ``param_ring_rows`` is accepted and ignored: the JAX package's device
+    parameter ring is TPU-tunnel machinery the port does not keep."""
 
     def __init__(self, fs, frame_period, fft_size, buffer_size,
                  number_of_pointers, rng_mode="exact", dtype=np.float64,
                  lookahead_pulses=256, hold_on_miss=False,
                  dispatch_min_pulses=None, hold_force_ms=15.0,
                  span_render=True, span_min_pulses=8,
-                 device_params="auto", device=None):
+                 device_params="auto", param_ring_rows=4096, device=None):
         if rng_mode not in ("exact", "fast", "none"):
             raise ValueError(f"rng_mode {rng_mode!r}")
         self.dtype = np.dtype(dtype)

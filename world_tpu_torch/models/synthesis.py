@@ -132,10 +132,12 @@ def _render(sp_abs, ap_safe, rows, current_time, vuv, shift, noise,
 
 
 def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
-                    y_length, fft_size, rng_mode="exact"):
+                    y_length, fft_size, rng_mode="exact", max_pulses=None):
     """Batch synthesis of B utterances: f0 (B, F), spectrogram and
     aperiodicity (B, F, fft_size//2+1), all on one device and dtype.
-    Returns (B, y_length)."""
+    ``max_pulses``, when set, is a capacity: each row renders its first
+    ``max_pulses`` pulses and drops the rest (the kept pulses render as
+    they would without it).  Returns (B, y_length)."""
     dtype, dev = spectrogram.dtype, spectrogram.device
     B = f0.shape[0]
     frame_period_s = frame_period / 1000.0
@@ -151,22 +153,33 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
     same_row = rows[1:] == rows[:-1]
     ns = torch.zeros_like(samples)
     ns[:-1] = torch.where(same_row, samples[1:] - samples[:-1], 0)
-
+    slot = torch.arange(samples.shape[0], device=dev) - row_ptr[rows]
     if rng_mode == "exact":
         # Each row's noise stream starts at 0: exclusive cumsum per row.
         start = torch.cumsum(ns, 0) - ns
-        noise = rng_ops.randn_blocks_at(start - start[row_ptr[rows]],
-                                        fft_size).to(dtype)
+        start = start - start[row_ptr[rows]]
+    if max_pulses is not None:
+        keep = slot < max_pulses
+        rows, samples, ns, slot = (a[keep] for a in (rows, samples, ns,
+                                                     slot))
+        if rng_mode == "exact":
+            start = start[keep]
+        row_ptr = torch.nn.functional.pad(
+            torch.cumsum(is_pulse.sum(1).clamp(max=max_pulses), 0), (1, 0))
+
+    if rng_mode == "exact":
+        noise = rng_ops.randn_blocks_at(start, fft_size).to(dtype)
     elif rng_mode == "fast":
-        # One draw per pulse slot within its row, up to the JAX step's
-        # static pulse capacity (world_tpu/parallel/pipeline.py:198-199),
-        # so a row's noise does not depend on the other rows.  Slots past
-        # it (tracks averaging above 1500 Hz, whose extra pulses the JAX
-        # step drops) reuse the draws cyclically.
-        max_pulses = min(y_length, int(y_length / fs * 1500) + 64)
-        slot = torch.arange(samples.shape[0], device=dev) - row_ptr[rows]
-        noise = rng_ops.fast_normal(3, (max_pulses, fft_size), dtype,
-                                    dev)[slot % max_pulses]
+        # One draw per pulse slot within its row, up to the capacity
+        # (by default the JAX step's, world_tpu/parallel/pipeline.py:
+        # 198-199), so a row's noise does not depend on the other rows.
+        # Without max_pulses, slots past it (tracks averaging above
+        # 1500 Hz, whose extra pulses the JAX step drops) reuse the draws
+        # cyclically.
+        capacity = (min(y_length, int(y_length / fs * 1500) + 64)
+                    if max_pulses is None else max_pulses)
+        noise = rng_ops.fast_normal(3, (capacity, fft_size), dtype,
+                                    dev)[slot % capacity]
     elif rng_mode == "none":
         noise = torch.zeros((samples.shape[0], fft_size), dtype=dtype,
                             device=dev)
@@ -207,11 +220,14 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
 
 
 def synthesis(f0, spectrogram, aperiodicity, fs, frame_period=5.0,
-              y_length=None, fft_size=None, rng_mode="exact", device=None):
+              y_length=None, fft_size=None, max_pulses=None,
+              rng_mode="exact", device=None):
     """Synthesis of one utterance (reference src/synthesis.cpp:339-399).
 
     Returns the waveform of length ``y_length`` (default:
     (f0_length-1)*frame_period*fs/1000 + 1, as in test/test.cpp:252-254).
+    ``max_pulses`` is the JAX package's static pulse capacity: pulses past
+    the first ``max_pulses`` are dropped.  None renders every pulse.
     """
     dev = resolve_device(device)
     spectrogram = as_tensor(spectrogram, dev)
@@ -224,4 +240,4 @@ def synthesis(f0, spectrogram, aperiodicity, fs, frame_period=5.0,
         y_length = int((f0_length - 1) * frame_period / 1000.0 * fs) + 1
     return synthesis_batch(f0[None], spectrogram[None], aperiodicity[None],
                            fs, frame_period, y_length, fft_size,
-                           rng_mode=rng_mode)[0]
+                           rng_mode=rng_mode, max_pulses=max_pulses)[0]

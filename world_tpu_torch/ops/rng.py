@@ -161,3 +161,22 @@ def fast_normal(seed, shape, dtype, device):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+def fast_normal_frames(seed, n_frames, tail, dtype, device, frames=None):
+    """fast_normal(seed, (n_frames,) + tail), or, with ``frames`` =
+    (offset, total), rows offset..offset+n_frames of the whole
+    utterance's draw (total,) + tail, zero past its end.  A frame slice
+    of an utterance then sees the draws its frames see in the whole
+    utterance; slicing is the only way, as a draw of fewer rows is not
+    a window of the larger one."""
+    if frames is None:
+        return fast_normal(seed, (n_frames,) + tail, dtype, device)
+    offset, total = frames
+    part = fast_normal(seed, (total,) + tail, dtype, device)[
+        offset: offset + n_frames]
+    if part.shape[0] < n_frames:
+        part = torch.cat([part, torch.zeros(
+            (n_frames - part.shape[0],) + tail, dtype=dtype,
+            device=device)])
+    return part

@@ -1,5 +1,6 @@
 from .longform import analyze_long, synthesize_long
-from .pipeline import corpus_metrics, make_batch_step, pad_and_bucket
+from .pipeline import (corpus_metrics, make_batch_step, make_mesh,
+                       pad_and_bucket)
 
 __all__ = ["analyze_long", "synthesize_long", "corpus_metrics",
-           "make_batch_step", "pad_and_bucket"]
+           "make_batch_step", "make_mesh", "pad_and_bucket"]

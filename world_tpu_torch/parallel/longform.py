@@ -17,6 +17,9 @@ whole-signal away from chunk edges.
 Rows run in batches of ``batch_lanes``; at most two batches are in
 flight ahead of the host copy of their results (pinned memory, CUDA
 events), so device memory grows with the batch, not with the signal.
+On a mesh (parallel.pipeline.make_mesh) the chunk rows ride 'data': each
+batch is padded to a multiple of n_data, run through the sharded step,
+gathered, and stitched on every rank.
 
 Long parameter tracks are synthesized through StreamingSynthesizer
 (reference src/synthesisrealtime.cpp), which carries the pulse phase
@@ -30,9 +33,9 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import download, resolve_device, upload
+from ..device import download, upload
 from ..models.realtime import StreamingSynthesizer
-from .pipeline import get_batch_step
+from .pipeline import get_batch_step, run_global, step_device
 
 # Batches dispatched ahead of the host copy of their results.
 IN_FLIGHT = 2
@@ -62,10 +65,10 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
     ``batch_lanes`` runs the chunk rows in batches of that size (all in
     one batch when unset).  int16 input goes to the device as int16 and is
     converted there to float32 (exact /2**15, the wavread scaling);
-    float32 input runs in float32, anything else in float64."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet")
-    dev = resolve_device(device)
+    float32 input runs in float32, anything else in float64.  With
+    ``mesh``, every rank calls it with the same signal and gets the whole
+    result; the device is the mesh's."""
+    dev = step_device(mesh, device)
     x = np.asarray(x)
     n = len(x)
     fp_s = frame_period / 1000.0
@@ -94,7 +97,7 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
     dtype = torch.float32 if (x.dtype == np.float32 or int_in) \
         else torch.float64
     step = get_batch_step(fs, chunk_len, frame_period=frame_period,
-                          rng_mode=rng_mode, f0_method=f0_method,
+                          rng_mode=rng_mode, mesh=mesh, f0_method=f0_method,
                           with_synthesis=False, codec_dims=codec_dims,
                           device=dev)
 
@@ -103,7 +106,7 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
             xb = upload(rows, torch.int16, dev).to(torch.float32) / 32768.0
         else:
             xb = upload(rows, dtype, dev)
-        return _Batch(step(xb)[:3], dev)
+        return _Batch(run_global(step, xb, mesh)[:3], dev)
 
     lanes = batch_lanes if batch_lanes else n_chunks
     parts, inflight = [], collections.deque()

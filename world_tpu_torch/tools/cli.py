@@ -14,6 +14,8 @@ Subcommands (the reference examples, examples/ of the C++ WORLD):
   test              -- full pipeline with manipulation + 3 synthesis
                        variants (test/test.cpp)
   verify            -- float64 exact pipeline against a golden directory
+  scaling           -- weak scaling of the data-sharded batch step over
+                       mesh sizes (one process per rank)
 
 Every subcommand runs in float64 (the reference file formats are
 float64) on the CUDA card; WORLD_TPU_PLATFORM=cpu runs it on the CPU.
@@ -428,8 +430,137 @@ def cmd_verify(argv):
     return 0 if ok else 1
 
 
-# The JAX CLI's "scaling" subcommand runs the device mesh, which is not
-# ported yet (ROADMAP queue-1 item 13).
+def _scaling_rank(rank, n_ranks, store, backend, dev_type, args, result):
+    """One rank of `scaling`: joins the file:// store's group, runs the
+    data-sharded step on fresh inputs each iteration and, on rank 0,
+    writes the step seconds (all ranks finished) to ``result``."""
+    import torch.distributed as dist
+
+    from ..parallel.pipeline import make_batch_step, make_mesh
+    from ..utils import distributed
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_ranks))
+    distributed.initialize(f"file://{store}", n_ranks, rank,
+                           device=dev_type, backend=backend)
+    try:
+        mesh = make_mesh(n_ranks, 1, devices=dev_type)
+        dev = torch.device(dev_type, torch.cuda.current_device()) \
+            if dev_type == "cuda" else torch.device("cpu")
+
+        def sync():
+            if dev_type == "cuda":
+                torch.cuda.synchronize()
+            dist.barrier()
+
+        fs, seconds = args["fs"], args["seconds"]
+        n = int(seconds * fs)
+        t = np.arange(n) / fs
+        base = np.sin(np.cumsum(2 * np.pi * (140 + 20 * np.sin(
+            2 * np.pi * 3 * t)) / fs)).astype(np.float32)
+        base *= (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)
+                 ).astype(np.float32)
+        # The same seed on every rank: every rank holds the global batch.
+        rng = np.random.default_rng(0)
+        batch = n_ranks * args["batch_per_device"]
+        xb = base[None, :] * (0.5 + rng.random((batch, 1),
+                                               dtype=np.float32))
+        step = make_batch_step(fs, n, rng_mode="fast", mesh=mesh,
+                               f0_method=args["f0_method"])
+        checksum = float(step(torch.as_tensor(xb, device=dev))[3].sum())
+        times = []
+        for _ in range(args["iters"]):
+            x = torch.as_tensor(xb * (0.5 + rng.random(
+                (batch, 1), dtype=np.float32)), device=dev)
+            sync()
+            t0 = time.perf_counter()
+            out = step(x)
+            sync()
+            times.append(time.perf_counter() - t0)
+            checksum += float(out[3].sum())
+        if not np.isfinite(checksum):
+            raise FloatingPointError(f"rank {rank}: non-finite output")
+        if rank == 0:
+            with open(result, "w") as f:
+                json.dump({"times": times}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def cmd_scaling(argv):
+    """Weak scaling of the data-sharded batched analysis+synthesis step
+    over growing meshes: each mesh size runs that many ranks, one
+    process each (torch.multiprocessing, a file:// store), on fresh
+    inputs each iteration, and reports the median step seconds (all
+    ranks finished), throughput and efficiency as one
+    ``scaling_efficiency`` JSON line.  On the card: nccl with one rank
+    per card while there are cards for every rank, else gloo with the
+    ranks sharing the cards; on the CPU: gloo."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    p = argparse.ArgumentParser(prog="scaling")
+    p.add_argument("--devices", default="1,2,4,8",
+                   help="comma-separated mesh sizes (weak scaling)")
+    p.add_argument("--batch-per-device", type=int, default=2)
+    p.add_argument("--seconds", type=float, default=1.0,
+                   help="audio length per utterance")
+    p.add_argument("--fs", type=int, default=22050)
+    p.add_argument("--f0-method", default="dio",
+                   choices=["dio", "harvest"])
+    p.add_argument("--iters", type=int, default=3)
+    a = p.parse_args(argv)
+    n_list = [int(v) for v in a.devices.split(",")]
+    dev = _device()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    args = {k: getattr(a, k) for k in ("fs", "seconds", "batch_per_device",
+                                        "f0_method", "iters")}
+    rows = []
+    for nd in n_list:
+        per_card = -(-nd // cards) if cards else None
+        backend = "nccl" if per_card == 1 else "gloo"
+        with tempfile.TemporaryDirectory() as td:
+            result = os.path.join(td, "result.json")
+            mp.spawn(_scaling_rank, nprocs=nd, join=True,
+                     args=(nd, os.path.join(td, "store"), backend,
+                           dev.type, args, result))
+            with open(result) as f:
+                times = json.load(f)["times"]
+        batch = nd * a.batch_per_device
+        dt = float(np.median(times))
+        rows.append({"devices": nd, "batch": batch,
+                     "audio_seconds": batch * a.seconds,
+                     "step_seconds": round(dt, 4),
+                     "throughput_xrt": round(batch * a.seconds / dt, 2),
+                     "backend": backend, "ranks_per_card": per_card})
+    base_tp = rows[0]["throughput_xrt"] / rows[0]["devices"]
+    for r in rows:
+        r["efficiency"] = round(
+            r["throughput_xrt"] / r["devices"] / base_tp, 3)
+    out = {"metric": "scaling_efficiency", "f0_method": a.f0_method,
+           "platform": "gpu" if cards else "cpu", "rows": rows,
+           "backend": sorted({r["backend"] for r in rows}),
+           "ranks_per_card": max(r["ranks_per_card"] or 0 for r in rows)
+           or None}
+    if cards:
+        from .ola_bench import card_name
+        out["card"] = card_name()
+        if out["ranks_per_card"] > 1:
+            out["note"] = (f"{out['ranks_per_card']} ranks share a card "
+                           "over gloo: the rows measure contention for "
+                           "the card, not scaling across cards")
+    else:
+        out["note"] = ("ranks share this host's CPU cores: efficiency "
+                       "reflects core contention, not scaling")
+    print(json.dumps(out))
+    return 0
+
+
 COMMANDS = {
     "f0analysis": cmd_f0analysis,
     "spanalysis": cmd_spanalysis,
@@ -439,6 +570,7 @@ COMMANDS = {
     "synthesis": cmd_synthesis,
     "test": cmd_test,
     "verify": cmd_verify,
+    "scaling": cmd_scaling,
 }
 
 

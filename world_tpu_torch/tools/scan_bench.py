@@ -15,12 +15,17 @@ so its synthesis is timed by the same code.
 Scan (where the package has ops/scan.py): the kernel on each
 synthesis's phase increments against its plain version (torch.equal),
 with device_ms (torch.profiler), ms (CUDA events), the plain version's
-ms, ``torch.cumsum`` on the card as the library call, and the bound.
+ms, ``torch.cumsum`` on the card as the library call (a parallel scan:
+it rounds otherwise, so it is a yardstick, not the same function), the
+bytes/operations bound, and the chain bound: the row length times the
+latency of one dependent double add, measured by tools/dadd_chain.cu.
 Prints one JSON line per case; needs a CUDA device.  chip_smoke.py uses
 ``measure_scan``.
 """
 
 import argparse
+import ctypes
+import functools
 import json
 import os
 import sys
@@ -48,6 +53,49 @@ def load(name):
     def get(key):
         return np.fromfile(d / f"{key}.f64").reshape(shapes[key])
     return get, scalars
+
+
+DADD_SRC = Path(__file__).with_name("dadd_chain.cu")
+
+
+def build_dadd():
+    """Compile tools/dadd_chain.cu (nvcc, the kernels' flags) unless it is
+    built.  Returns (library path, compiler log or None)."""
+    from world_tpu_torch.ops import _cuda
+    return _cuda.compile_shared(_cuda.nvcc(), _cuda.NVCC_FLAGS, DADD_SRC)
+
+
+@functools.lru_cache(maxsize=None)
+def dadd_latency_ns(torch, n=1 << 22, reps=5):
+    """Nanoseconds per dependent double add on the card: the chain of
+    tools/dadd_chain.cu at 2n and at n adds (CUDA events, the least of
+    ``reps`` each), the difference over n."""
+    fn = ctypes.CDLL(str(build_dadd()[0])).dadd_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def best_ms(count):
+        times = []
+        for _ in range(reps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            rc = fn(out.data_ptr(), count, 1.0, stream)
+            t1.record()
+            if rc != 0:
+                raise RuntimeError(f"dadd chain launch: cudaError {rc}")
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        if float(out) != float(count):
+            raise RuntimeError(f"dadd chain summed {float(out)}, not "
+                               f"{count}")
+        return min(times)
+
+    best_ms(n)                                   # warm-up
+    return (best_ms(2 * n) - best_ms(n)) * 1e6 / n
 
 
 def measure_scan(torch, scan, x, flush):
@@ -79,6 +127,10 @@ def measure_scan(torch, scan, x, flush):
             torch, lambda: torch.cumsum(x, dim=1)),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # Each row is one chain of L dependent double adds (rows run side
+        # by side), so no order-keeping scan beats L add latencies.
+        "dadd_latency_ns": dadd_latency_ns(torch),
+        "chain_bound_ms": x.shape[1] * dadd_latency_ns(torch) * 1e-6,
         "flush_cold_device_ms": bench.device_ms(
             torch, lambda: scan.cumsum_rows(x), flush=flush),
     }
