@@ -6,19 +6,19 @@
 Phases, one JSON line each, in this order:
   device    torch version, card name, nvidia-smi name and power limit
   build     nvcc builds of every csrc/*.cu kernel and of the dependent-add
-            microbenchmark, started together
+            and dependent-divide microbenchmarks, started together
   window_starts  fs-derived window positions on the card == on the CPU
   main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
             in float32 fast mode, gated against the C++ goldens;
-            launches of every kernel (the ragged mode and the scan must
-            have launched)
+            launches of every kernel (the ragged mode, the scan and
+            Harvest's contour kernel must have launched); stage ms
   main_48k  the same at 48 kHz (fft 2048)
   dio_22k   the JAX package's default step, make_batch_step(22050, ...,
             f0_method="dio", codec_dims=64): Dio -> StoneMask ->
             CheapTrick -> D4C -> codec -> Synthesis at batch 16, float32
             fast mode; F0 gated against the golden StoneMask track, coded
             sp/ap against the codec of a full step, the ragged and scan
-            kernels launched
+            kernels and Dio's contour kernel launched; stage ms
   dio_48k   the same at 48 kHz
   dio_vs_cpu  row 0 of dio_22k's batch, rng_mode "none", on the card
             against the same step on the CPU
@@ -70,8 +70,8 @@ Phases, one JSON line each, in this order:
   cli_manip the CLI's `test vaiueo2d.wav out.wav 2.0 1.5` (float64 on
             the card): 01/02/03out.wav, and the 0.7
             stretch, within 1 LSB of tests/goldens_manip/ with < 1% of
-            samples differing; both OLA modes and the scan launched in
-            the phase
+            samples differing; both OLA modes, the scan and Harvest's
+            contour kernel launched in the phase
   cli_verify  `verify` on the card: PASS at the JAX CLI's gates
   cli_examples  f0analysis -> spanalysis -d 40 -> apanalysis -c ->
             readandsynthesis, and analysis -> synthesis, on the card and
@@ -113,9 +113,22 @@ Phases, one JSON line each, in this order:
             with its times, torch.cumsum's, the bound, and the chain bound
             (row length x the latency of one dependent double add,
             world_tpu_torch/tools/dadd_chain.cu)
-Then the kernels summary line (ragged and scan launches summed over the
-four batch runs, the cli_* phases and the mesh phases, general launches
-over the streaming, long-form and cli_* phases),
+  contour_kernels  the contour-walk kernels on the arguments their
+            wrappers received: Dio's (dio_fix_walks) in dio_22k, dio_48k
+            and dio_exact (float64), Harvest's (harvest_fix_step3) in
+            main_22k, main_48k, the first batch of longform_48k and
+            cli_manip (float64); each against its plain version
+            (torch.equal), with its times, the plain version's, the
+            bytes bound and the chain bound (dependent divides x the
+            latency of one, world_tpu_torch/tools/div_chain.cu)
+  stage_ops the top-level torch ops each stage of one batch step issues
+            (world_tpu_torch/tools/profile_step.py: stage_ops) for the
+            four batch steps, and the contour kernels' launches in it:
+            dio.fix at most 50 ops and one dio_fix_walks launch,
+            harvest.contour at most 350 and one harvest_fix_step3 launch
+Then the kernels summary line (ragged, scan and contour launches summed
+over the four batch runs, the cli_* phases and the mesh phases, general
+launches over the streaming, long-form and cli_* phases),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -209,7 +222,8 @@ def drive(torch, ola, step, fresh):
     last timed step's outputs, step seconds, launches, stage ms,
     recorded inputs)."""
     recorded = {}
-    with recording_ola(recorded), recording_scan(recorded):
+    with recording_ola(recorded), recording_scan(recorded), \
+            recording_contour(recorded):
         step(fresh())                               # warm-up
     torch.cuda.synchronize()
     for k in all_kernels(ola):
@@ -273,6 +287,33 @@ def recording_scan(recorded):
         synthesis.cumsum_rows = real
 
 
+@contextlib.contextmanager
+def recording_contour(recorded):
+    """Within the block, the F0 stages' calls of the contour kernels'
+    wrappers leave their arguments in ``recorded["dio_fix_walks"]`` and
+    ``recorded["harvest_fix_step3"]`` as (args, kwargs) (each the first
+    call's)."""
+    from world_tpu_torch.models import dio, harvest_contour
+
+    patched = [(m, n, getattr(m, n)) for m, n in (
+        (dio, "dio_fix_walks"), (harvest_contour, "harvest_fix_step3"))]
+    for module, name, real in patched:
+        def record(*args, _name=name, _real=real, **kwargs):
+            recorded.setdefault(_name, (args, kwargs))
+            return _real(*args, **kwargs)
+        setattr(module, name, record)
+    try:
+        yield recorded
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+
+
+# The contour kernels' arguments in the phases that are not batch runs:
+# CONTOUR_INPUTS[phase][wrapper name] = (args, kwargs).
+CONTOUR_INPUTS = {}
+
+
 def batch_maker(torch, x, seed=20261016):
     """Batches of the utterance: row 0 unscaled, rows 1-15 at gains in
     0.5-1.5 drawn from ``seed``."""
@@ -331,7 +372,7 @@ def main_path(torch, W, ola, get, scalars, tag, card):
     check(cents < 0.1, f"{tag}: {cents} cents RMS")
     check(sp_db < 0.01, f"{tag}: sp median {sp_db} dB")
     check(np.median(env) < 0.5, f"{tag}: envelope median {np.median(env)}")
-    for k in path_kernels(ola):
+    for k in path_kernels(ola, "harvest"):
         check(launches[k.__name__] > 0,
               f"{tag}: kernel {k.__name__} never launched on the main path")
     return result, recorded
@@ -411,7 +452,7 @@ def dio_path(torch, W, ola, get, scalars, tag, card):
     check(sp_slack <= 2e-4 and ap_slack <= 2e-4,
           f"{tag}: coded sp/ap differ from the codec of the full step "
           f"({sp_err}, {ap_err})")
-    for k in path_kernels(ola):
+    for k in path_kernels(ola, "dio"):
         check(launches[k.__name__] > 0,
               f"{tag}: kernel {k.__name__} never launched on the Dio path")
     return result, recorded
@@ -444,7 +485,8 @@ def dio_exact(torch, W, get, scalars):
     """float64 Dio and StoneMask on the card against the goldens at
     tests/test_f0.py's gates."""
     fs = scalars["fs"]
-    tp, f0 = W.dio(get("x"), fs, device="cuda")
+    with recording_contour(CONTOUR_INPUTS.setdefault("dio_exact", {})):
+        tp, f0 = W.dio(get("x"), fs, device="cuda")
     tp, f0 = tp.cpu().numpy(), f0.cpu().numpy()
     tp_err = float(np.abs(tp - get("dio_tp")).max())
     ref = get("dio_f0")
@@ -852,8 +894,10 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     longform._Batch.__init__, longform._Batch.result = init, result
     try:
         t0 = time.perf_counter()
-        tp, f0, sp, ap = analyze_long(xi, fs, codec_dims=CODEC_DIMS,
-                                      batch_lanes=lanes, **kw)
+        with recording_contour(CONTOUR_INPUTS.setdefault("longform_48k",
+                                                         {})):
+            tp, f0, sp, ap = analyze_long(xi, fs, codec_dims=CODEC_DIMS,
+                                          batch_lanes=lanes, **kw)
         wall = time.perf_counter() - t0
     finally:
         longform._Batch.__init__, longform._Batch.result = (real_init,
@@ -985,7 +1029,8 @@ def cli_manip(W, ola, tmp):
     os.chdir(tmp)
     try:
         with contextlib.redirect_stdout(io.StringIO()) as log, \
-                recording_scan(SCAN_INPUTS):
+                recording_scan(SCAN_INPUTS), recording_contour(
+                    CONTOUR_INPUTS.setdefault("cli_manip", {})):
             rc = cli.main(["test", str(wav), "out.wav", "2.0", "1.5"])
         x, fs, _ = wavread(wav)
         p = W.analyze(x, fs, f0_option=W.HarvestOption(f0_floor=40.0),
@@ -1011,8 +1056,9 @@ def cli_manip(W, ola, tmp):
     check(rc == 0, f"cli_manip: rc {rc}")
     for k, v in res.items():
         check_lsb(v, f"cli_manip {k}")
-    for name, n in launches.items():
-        check(n > 0, f"cli_manip: {name} never launched")
+    for k in path_kernels(ola, "harvest") + [ola.ola_accumulate]:
+        check(launches[k.__name__] > 0,
+              f"cli_manip: {k.__name__} never launched")
     return launches
 
 
@@ -1373,10 +1419,10 @@ def mesh_nccl(torch, W, ola, tmp):
     emit("mesh_nccl", seconds=time.perf_counter() - t_phase,
          backend=backend, mesh=[1, 1], **res)
     check(backend == "nccl", f"mesh_nccl: backend {backend}")
-    for tag, *_ in MESH_STEPS:
+    for tag, _, method, *_ in MESH_STEPS:
         check(all(res[tag]["equal"]),
               f"mesh_nccl {tag}: sharded != unsharded {res[tag]['equal']}")
-        for k in path_kernels(ola):
+        for k in path_kernels(ola, method):
             check(res[tag]["launches"][k.__name__] > 0,
                   f"mesh_nccl {tag}: {k.__name__} never launched")
     check(all(res["analyze_long_equal"]),
@@ -1576,7 +1622,7 @@ def mesh_ranks(ola, tmp, phase, world, backend):
          ranks=ranks, launches=launches)
     for r in ranks:
         check(r["backend"] == backend, f"{phase}: {r['backend']}")
-        for tag, *_, synth, shape in mesh_cases(world):
+        for tag, _, _, method, _, synth, shape in mesh_cases(world):
             c = r["cases"][tag]
             what = f"{phase} rank {r['rank']} {tag}"
             for k, lim in BATCH_ATOL.items():
@@ -1590,11 +1636,11 @@ def mesh_ranks(ola, tmp, phase, world, backend):
             check(sizes[0][0] == rows and sizes[1][:2] == sizes[0]
                   and sizes[2][:2] == sizes[0],
                   f"{what}: shard shapes {sizes}")
+            for k in path_kernels(ola, method, synth):
+                check(c["launches"][k.__name__] > 0,
+                      f"{what}: {k.__name__} never launched")
             if synth:
                 check(c["y_snr_db"] > 60.0, f"{what}: y {c['y_snr_db']} dB")
-                for k in path_kernels(ola):
-                    check(c["launches"][k.__name__] > 0,
-                          f"{what}: {k.__name__} never launched")
                 check(all(v == 0.0 for v in
                           c["replay_max_abs_err"].values()),
                       f"{what}: kernel != plain {c['replay_max_abs_err']}")
@@ -1634,18 +1680,65 @@ def scaling_phase(torch, sizes=(1, 2)):
 
 def all_kernels(ola):
     """Every kernel wrapper of the port (each counts its launches)."""
-    from world_tpu_torch.ops import scan
+    from world_tpu_torch.ops import contour, scan
 
-    return [ola.ola_accumulate, ola.ola_accumulate_ragged, scan.cumsum_rows]
+    return [ola.ola_accumulate, ola.ola_accumulate_ragged, scan.cumsum_rows,
+            contour.dio_fix_walks, contour.harvest_fix_step3]
 
 
-def path_kernels(ola):
-    """The wrappers the batch steps must launch: batch synthesis calls
-    the scan kernel and the OLA kernel's ragged mode (streaming, checked
-    in its phases, the general mode)."""
-    from world_tpu_torch.ops import scan
+def path_kernels(ola, f0_method, synthesis=True):
+    """The wrappers a batch step with ``f0_method`` must launch: the F0
+    stage's contour kernel, and with synthesis the scan kernel and the
+    OLA kernel's ragged mode (streaming, checked in its phases, the
+    general mode)."""
+    from world_tpu_torch.ops import contour, scan
 
-    return [ola.ola_accumulate_ragged, scan.cumsum_rows]
+    walk = {"dio": contour.dio_fix_walks,
+            "harvest": contour.harvest_fix_step3}[f0_method]
+    return [walk] + ([ola.ola_accumulate_ragged, scan.cumsum_rows]
+                     if synthesis else [])
+
+
+CONTOUR_CASES = ("main_22k/harvest_fix_step3", "main_48k/harvest_fix_step3",
+                 "dio_22k/dio_fix_walks", "dio_48k/dio_fix_walks",
+                 "dio_exact/dio_fix_walks", "longform_48k/harvest_fix_step3",
+                 "cli_manip/harvest_fix_step3")
+# F0 method: (its contour stage, the stage's kernel, most torch ops).
+STAGE_OPS_LIMITS = {"dio": ("dio.fix", "dio_fix_walks", 50),
+                    "harvest": ("harvest.contour", "harvest_fix_step3", 350)}
+
+
+def stage_ops_phase(torch, W, ola):
+    """The top-level torch ops each stage of one batch step issues
+    (main_*'s Harvest step, dio_*'s Dio step with codec 64, batch 16,
+    float32 fast mode), with the kernel counts set to 0 just before the
+    traced step and read just after: the contour stages at most
+    STAGE_OPS_LIMITS' ops and one launch of their kernel."""
+    from world_tpu_torch.tools.profile_step import stage_ops
+
+    res = {}
+    for tag, gold, method, codec_dims in (
+            ("main_22k", "goldens", "harvest", None),
+            ("main_48k", "goldens_fs48", "harvest", None),
+            ("dio_22k", "goldens", "dio", CODEC_DIMS),
+            ("dio_48k", "goldens_fs48", "dio", CODEC_DIMS)):
+        fs, xb = golden_batch(torch, gold)
+        step = W.make_batch_step(fs, xb.shape[1], rng_mode="fast",
+                                 f0_method=method, codec_dims=codec_dims,
+                                 device="cuda")
+        step(xb)                                     # warm-up
+        torch.cuda.synchronize()
+        zero_counts(ola)
+        ops = stage_ops(step, xb)
+        res[tag] = {"f0_method": method, "stage_ops": ops,
+                    "launches": read_counts(ola)}
+    emit("stage_ops", **res)
+    for tag, r in res.items():
+        stage, kernel, most = STAGE_OPS_LIMITS[r["f0_method"]]
+        n = r["stage_ops"].get(stage)
+        check(n is not None and n <= most and r["launches"][kernel] == 1,
+              f"stage_ops {tag}: {stage} issued {n} ops (at most {most}) "
+              f"and {r['launches'][kernel]} {kernel} launches (1)")
 
 
 def check_cases(cases, what):
@@ -1668,6 +1761,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import world_tpu_torch as W
     from world_tpu_torch.ops import _cuda, ola, scan
+    from world_tpu_torch.tools import contour_bench
     from world_tpu_torch.tools import ola_bench as bench
     from world_tpu_torch.tools import scan_bench
 
@@ -1680,9 +1774,11 @@ def main():
 
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _cuda.CSRC.glob("*.cu"))
-    # The kernels and the dependent-add microbenchmark, built together.
+    # The kernels and the dependent-add and -divide microbenchmarks, built
+    # together.
     builds = {s: functools.partial(_cuda.build, s) for s in sources}
     builds["dadd_chain"] = scan_bench.build_dadd
+    builds["div_chain"] = contour_bench.build_div
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(f) for k, f in builds.items()}
         logs = {k: f.result() for k, f in futures.items()}
@@ -1793,6 +1889,21 @@ def main():
     emit("scan_kernel", card=card, scan=scans)
     check_cases(scans.values(), "scan_kernel")
 
+    # The contour kernels on the arguments their wrappers received in the
+    # batch runs, dio_exact, longform_48k's first batch and cli_manip,
+    # against their plain versions: bit-equal.
+    walks = {}
+    for tag, rec in list(replays.items()) + list(CONTOUR_INPUTS.items()):
+        for name in ("dio_fix_walks", "harvest_fix_step3"):
+            if name in rec:
+                walks[f"{tag}/{name}"] = contour_bench.measure(
+                    torch, name, *rec[name], flush)
+    emit("contour_kernels", card=card, walks=walks)
+    check(sorted(walks) == sorted(CONTOUR_CASES),
+          f"contour_kernels: recorded {sorted(walks)}")
+    check_cases(walks.values(), "contour_kernels")
+    stage_ops_phase(torch, W, ola)
+
     def line(name, c, launches, source="world_tpu_torch/csrc/ola.cu",
              replaces="world_tpu/ops/pallas_ola.py:33"):
         return {
@@ -1822,7 +1933,22 @@ def main():
                   path_launches("cumsum_rows"),
                   source="world_tpu_torch/csrc/scan.cu",
                   replaces="world_tpu/models/synthesis.py:53"),
-             chain_bound_ms=scans["main_22k"]["chain_bound_ms"])]}),
+             chain_bound_ms=scans["main_22k"]["chain_bound_ms"]),
+        # No Pallas kernels: the JAX package's device loops (lax.scan,
+        # lax.while_loop) of the contour walks.
+        dict(line("dio_fix_walks", walks["dio_22k/dio_fix_walks"],
+                  path_launches("dio_fix_walks"),
+                  source="world_tpu_torch/csrc/dio_fix.cu",
+                  replaces="world_tpu/models/dio.py:155-203"),
+             chain_bound_ms=walks["dio_22k/dio_fix_walks"][
+                 "chain_bound_ms"]),
+        dict(line("harvest_fix_step3",
+                  walks["main_22k/harvest_fix_step3"],
+                  path_launches("harvest_fix_step3"),
+                  source="world_tpu_torch/csrc/harvest_contour.cu",
+                  replaces="world_tpu/models/harvest_contour.py:114-306"),
+             chain_bound_ms=walks["main_22k/harvest_fix_step3"][
+                 "chain_bound_ms"])]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

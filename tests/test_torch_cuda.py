@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
-modes, at every tile, and the scan kernel against their plain versions
-(torch.equal), IEEE
+modes, at every tile, the scan kernel and the contour-walk kernels
+against their plain versions (torch.equal), IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
@@ -23,7 +23,9 @@ torch.set_num_threads(1)
 
 import world_tpu_torch as W  # noqa: E402
 from world_tpu_torch.device import div  # noqa: E402
-from world_tpu_torch.ops import ola, scan  # noqa: E402
+from world_tpu_torch.models import dio as port_dio  # noqa: E402
+from world_tpu_torch.models import harvest_contour as port_hc  # noqa: E402
+from world_tpu_torch.ops import contour, ola, scan  # noqa: E402
 from world_tpu_torch.ops.ola import ola_accumulate, ola_plain  # noqa: E402
 from world_tpu_torch.parallel import pipeline  # noqa: E402
 from world_tpu_torch.tools.ola_bench import TABLE  # noqa: E402
@@ -177,6 +179,155 @@ def test_scan_kernel_matches_plain(cuda, dtype):
         assert scan.cumsum_rows.launches == before + 1
         assert torch.equal(got.cpu(), scan.cumsum_rows_plain(x.cpu())), \
             (B, L)
+
+
+def dio_walk_rows(rs, F=160, C=7):
+    """(step2 (F,), cands (C, F)): random rows with short runs around a
+    drifting pitch (some candidates zero), then the edge rows: no voiced
+    frame, sections touching frames 0 and F-1, every frame voiced,
+    sections of 6 frames."""
+    rows = []
+    for _ in range(4):
+        pitch = 150.0 * np.exp(np.cumsum(rs.randn(F) * 0.02))
+        step2 = np.where(rs.rand(F) < 0.35, 0.0,
+                         pitch * (1 + 0.01 * rs.randn(F)))
+        cands = pitch[:, None] * (1.0 + 0.08 * rs.randn(F, C))
+        cands[rs.rand(F, C) < 0.3] = 0.0
+        rows.append((step2, cands.T.copy()))
+    cands = rows[0][1]
+    edge = np.zeros(F)
+    edge[:20], edge[F - 15:] = 150.0, 160.0
+    six = np.zeros(F)
+    for st in range(5, F - 6, 12):
+        six[st:st + 6] = 140.0
+    rows += [(np.zeros(F), cands), (edge, cands),
+             (np.abs(rows[0][0]) + 100.0, cands), (six, cands)]
+    return rows
+
+
+def harvest_walk_rows(rs, F=400, S=21):
+    """(step2, cands, scores): random grids whose best-scored slot follows
+    a drifting pitch through voiced runs, step2 from the port's FixStep1
+    and FixStep2; then the edge rows (as dio_walk_rows, sections of 7
+    frames, which FixStep2 keeps)."""
+    rows = []
+    for _ in range(4):
+        c = np.zeros((F, S))
+        s = np.zeros((F, S))
+        pitch = 140.0 * np.exp(np.cumsum(rs.randn(F) * 0.001))
+        t = 0
+        while t < F:
+            run, gap = rs.randint(1, 60), rs.randint(1, 15)
+            for i in range(t, min(F, t + run)):
+                k = rs.randint(1, S)
+                c[i, :k] = pitch[i] * (1.0 + 0.1 * rs.randn(k))
+                s[i, :k] = np.abs(rs.randn(k)) * 3.0
+                c[i, 0], s[i, 0] = pitch[i], 10.0 + rs.rand()
+            t += run + gap
+        best = np.argmax(s, 1)
+        base = np.where(s.max(1) > 0, c[np.arange(F), best], 0.0)
+        step2 = port_hc._fix_step2(port_hc._fix_step1(
+            torch.as_tensor(base[None]), 0.008))[0].numpy()
+        rows.append((step2, c, s))
+    pitch, c, s = rows[0][1][:, 0], rows[0][1], rows[0][2]
+    edge = np.zeros(F)
+    edge[:40], edge[F - 30:] = pitch[:40], pitch[F - 30:]
+    seven = np.zeros(F)
+    for st in range(3, F - 8, 14):
+        seven[st:st + 7] = pitch[st:st + 7]
+    rows += [(np.zeros(F), c, s), (edge, c, s),
+             (np.where(pitch > 0, pitch, 150.0), c, s), (seven, c, s)]
+    return rows
+
+
+def on_card(rows, dt, cuda):
+    return [torch.as_tensor(np.stack([r[i] for r in rows]), dtype=dt,
+                            device=cuda) for i in range(len(rows[0]))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dio_fix_kernel_matches_plain(cuda, dtype):
+    """Dio's walks kernel == its plain version (torch.equal) on random
+    and edge rows; the counter counts."""
+    s2, c = on_card(dio_walk_rows(np.random.RandomState(1)),
+                    getattr(torch, dtype), cuda)
+    before = contour.dio_fix_walks.launches
+    got = contour.dio_fix_walks(s2, c, 0.1)
+    assert contour.dio_fix_walks.launches == before + 1
+    want = contour.dio_fix_walks_plain(s2, c, 0.1)
+    assert torch.equal(got, want), (got != want).any(1)
+    assert (got != s2).any()
+
+
+@pytest.mark.parametrize("cap", [None, 2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_harvest_contour_kernel_matches_plain(cuda, dtype, cap):
+    """Harvest's FixStep3 kernel == its plain version (torch.equal) on
+    random and edge rows, all sections and the first ``cap``; the
+    counter counts."""
+    s2, c, s = on_card(harvest_walk_rows(np.random.RandomState(2)),
+                       getattr(torch, dtype), cuda)
+    before = contour.harvest_fix_step3.launches
+    got = contour.harvest_fix_step3(s2, c, s, cap=cap)
+    assert contour.harvest_fix_step3.launches == before + 1
+    want = contour.harvest_fix_step3_plain(s2, c, s, cap=cap)
+    assert torch.equal(got, want), (got != want).any(1)
+    assert (got != s2).any()
+
+
+def recorded_walks(fs, gold, method, dtype, cuda):
+    """The arguments the contour kernel's wrapper gets in a 16-row batch
+    step of the golden utterance of tests/<gold>/ (rows at gains
+    0.5-1.5) on the card."""
+    x = np.fromfile(os.path.join(os.path.dirname(GOLDENS), gold, "x.f64"))
+    xb = (x[None] * np.linspace(0.5, 1.5, 16)[:, None]).astype(dtype)
+    module, name = ((port_dio, "dio_fix_walks") if method == "dio"
+                    else (port_hc, "harvest_fix_step3"))
+    real, seen = getattr(module, name), []
+
+    def record(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+    setattr(module, name, record)
+    try:
+        pipeline.make_batch_step(fs, xb.shape[1], f0_method=method,
+                                 with_synthesis=False, device=cuda)(xb)
+    finally:
+        setattr(module, name, real)
+    return seen[0]
+
+
+@pytest.mark.parametrize("method", ["dio", "harvest"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("fs,gold", [(22050, "goldens"),
+                                     (48000, "goldens_fs48")])
+def test_contour_kernels_match_plain_at_golden_sizes(cuda, method, dtype,
+                                                     fs, gold):
+    """Each contour kernel == its plain version (torch.equal) on the
+    arguments a 16-row batch step gives it at 22.05 and 48 kHz."""
+    args, kwargs = recorded_walks(fs, gold, method, dtype, cuda)
+    name = "dio_fix_walks" if method == "dio" else "harvest_fix_step3"
+    got = getattr(contour, name)(*args, **kwargs)
+    want = getattr(contour, name + "_plain")(*args, **kwargs)
+    assert torch.equal(got, want), (got != want).any(1)
+
+
+def test_contour_plain_versions_never_run_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernels: with every plain version made to
+    raise, the Dio and Harvest steps still run on the card."""
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached on the card")
+    for module, name in ((contour, "dio_fix_walks_plain"),
+                         (contour, "harvest_fix_step3_plain"),
+                         (port_dio, "_fix_step3"), (port_dio, "_fix_step4"),
+                         (port_hc, "_fix_step3"), (port_hc, "_extend")):
+        monkeypatch.setattr(module, name, boom)
+    x = golden("x").astype(np.float32)
+    for method in ("dio", "harvest"):
+        step = pipeline.make_batch_step(22050, len(x), f0_method=method,
+                                        with_synthesis=False, device=cuda)
+        f0 = step(np.stack([x, 0.7 * x]))[0]
+        assert torch.isfinite(f0).all() and (f0 > 0).any()
 
 
 def test_div_on_card_matches_cpu(cuda):

@@ -5,7 +5,8 @@ The public surface is what world_tpu, world_tpu.parallel,
 world_tpu.utils, world_tpu.io and world_tpu.models export: their
 ``__all__`` names (a module among them stands for its public functions
 and classes) or, where a package has no ``__all__``, the public
-functions and classes of its modules.  For each, every parameter of the
+functions and classes of its modules; a jax.jit-wrapped function counts
+as the function it wraps.  For each, every parameter of the
 JAX signature is in the port's with the same name and kind, and a
 positional one at the same position; the port may add parameters
 (``device``, keyword extras) after them.
@@ -23,11 +24,17 @@ PACKAGES = ("world_tpu", "world_tpu.parallel", "world_tpu.utils",
             "world_tpu.io", "world_tpu.models")
 
 
+def _callable_of(v, module_name):
+    """Whether ``v`` is a function or class of ``module_name``, or wraps
+    one (a jax.jit-wrapped function, checked by the wrapped signature)."""
+    v = getattr(v, "__wrapped__", v)
+    return ((inspect.isfunction(v) or inspect.isclass(v))
+            and v.__module__ == module_name)
+
+
 def _defined_in(module):
     return [n for n, v in vars(module).items()
-            if not n.startswith("_")
-            and (inspect.isfunction(v) or inspect.isclass(v))
-            and v.__module__ == module.__name__]
+            if not n.startswith("_") and _callable_of(v, module.__name__)]
 
 
 def _public():
@@ -45,7 +52,8 @@ def _public():
             v = getattr(pkg, n)
             if inspect.ismodule(v):
                 cases.update((v.__name__, m) for m in _defined_in(v))
-            elif inspect.isfunction(v) or inspect.isclass(v):
+            elif _callable_of(v, getattr(getattr(v, "__wrapped__", v),
+                                          "__module__", None)):
                 cases.add((pkg_name, n))
     return sorted(cases)
 
@@ -58,7 +66,8 @@ def test_surface_is_covered():
     names = {n for _, n in CASES}
     for n in ("synthesis", "StreamingSynthesizer", "BatchedCorpusRunner",
               "make_mesh", "make_batch_step", "analyze_long",
-              "allreduce_metrics", "wavread", "read_f0", "harvest"):
+              "allreduce_metrics", "wavread", "read_f0", "harvest",
+              "fix_and_smooth"):
         assert n in names, n
     assert len(CASES) > 60
 

@@ -7,8 +7,10 @@
      their spread; the best band per frame;
   C. the four-step contour fix.  Steps 3 and 4 are walks along the
      frames (the reference's section-by-section loops chain head to
-     tail, which one walk with an "active" flag reproduces); they run as
-     Python loops over frames, vectorised over utterances.
+     tail, which one walk with an "active" flag reproduces): on the card
+     one launch of csrc/dio_fix.cu (ops/contour.py), on the CPU its
+     plain version, the Python loops over frames below, vectorised over
+     utterances.
 
 The JAX package's float32 path replaces B's crossing lists by frame-block
 summaries (a TPU workaround, proved bit-equal to this form by
@@ -23,6 +25,7 @@ import torch
 from .. import config
 from ..device import StageClock, as_tensor, div, resolve_device
 from ..ops.common import get_suitable_fft_size
+from ..ops.contour import dio_fix_walks
 from ..ops.filterbank import filtered_signal_dio
 from ..ops.matlab import decimate, interp1, matlab_round
 from ..ops.zerocross import four_zero_crossing_streams
@@ -200,10 +203,8 @@ def dio_batch(x, fs, frame_period=5.0, f0_floor=config.K_FLOOR_F0,
     with clock("dio.fix"):
         step1 = _fix_step1(best, voice_range_minimum, allowed_range)
         step2 = _fix_step2(step1, voice_range_minimum)
-        cands_t = cands.transpose(1, 2)                     # (B, F, C)
-        step3 = _fix_step3(step2, cands_t, allowed_range)
-        return temporal_positions, _fix_step4(step3, step2, cands_t,
-                                              allowed_range)
+        return temporal_positions, dio_fix_walks(step2, cands,
+                                                 allowed_range)
 
 
 def dio(x, fs, option=None, device=None):

@@ -22,6 +22,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source on top of NVCC_FLAGS.  The contour walks compare
+# values that must round as the plain version's separate tensor ops do,
+# so nvcc may not contract a multiply and an add into an FMA there.
+SOURCE_FLAGS = {"dio_fix": ("-fmad=false",),
+                "harvest_contour": ("-fmad=false",)}
 
 
 def nvcc():
@@ -63,9 +68,11 @@ def compile_shared(compiler, flags, src):
 
 
 def build(name):
-    """Compile csrc/<name>.cu unless its library is already built.
-    Returns (library path, compiler log; None when nothing was built)."""
-    return compile_shared(nvcc(), NVCC_FLAGS, CSRC / f"{name}.cu")
+    """Compile csrc/<name>.cu (NVCC_FLAGS and its SOURCE_FLAGS) unless its
+    library is already built.  Returns (library path, compiler log; None
+    when nothing was built)."""
+    return compile_shared(nvcc(), NVCC_FLAGS + SOURCE_FLAGS.get(name, ()),
+                          CSRC / f"{name}.cu")
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,28 +3,73 @@
     python -m world_tpu_torch.tools.profile_step [--fs 22050|48000]
         [--batch 16] [--f0-method dio|harvest] [--codec-dims N]
         [--out profile_22050.json]
+    python world_tpu_torch/tools/profile_step.py --root DIR [...]
 
 Drives make_batch_step(rng_mode="fast") with the given F0 method (Dio,
 the step's default, or Harvest) and optional on-device codec on rows of
-the golden utterance in float32 and reports, for one step after warm-up:
-wall ms, per-stage ms (synchronized stage clock, a separate step), and
+the golden utterance in float32 and reports, after two warm-up steps:
+the wall ms of REPS synchronized steps and per-stage ms (synchronized
+stage clock, REPS further steps; medians), and for one more step
 from torch.profiler the device-busy ms (sum of kernel and copy times on
 the card), the device idle share, the number of kernels launched and the
-kernels that take most device time.  Needs a CUDA device.
+kernels that take most device time; and, from a third step traced on the
+host alone, the top-level torch ops each stage issues (``stage_ops``).
+``--root`` imports world_tpu_torch from another checkout (for example
+the parent commit, unpacked with ``git archive``; the script form
+only), so its steps are timed by the same code.  Needs a CUDA device.
 """
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+REPO = Path(__file__).resolve().parents[2]
 GOLDENS = {22050: "goldens", 48000: "goldens_fs48"}
+REPS = 7
+
+
+def stage_ops(step, x):
+    """Top-level torch ops per stage of one ``step(x, timings=...)``: the
+    aten ops that torch.profiler records directly inside a stage of the
+    step's StageClock (not inside another op), counted for that stage and
+    every stage around it.  Host-side tracing only."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from world_tpu_torch.device import StageClock
+
+    real = StageClock.__call__
+
+    @contextlib.contextmanager
+    def marked(self, name):
+        with record_function("stage:" + name), real(self, name):
+            yield
+
+    StageClock.__call__ = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(x, timings={})
+    finally:
+        StageClock.__call__ = real
+    counts = collections.Counter()
+    for e in prof.events():
+        p = e.cpu_parent
+        if not (e.name.startswith("aten::") and p is not None
+                and p.name.startswith("stage:")):
+            continue
+        while p is not None:
+            if p.name.startswith("stage:"):
+                counts[p.name[len("stage:"):]] += 1
+            p = p.cpu_parent
+    return dict(counts)
 
 
 def main(argv=None):
@@ -33,6 +78,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--f0-method", default="dio", choices=("dio", "harvest"))
     ap.add_argument("--codec-dims", type=int, default=None)
+    ap.add_argument("--root", default=None,
+                    help="checkout to import world_tpu_torch from")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -41,12 +88,17 @@ def main(argv=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    root = Path(args.root or REPO).resolve()
+    sys.path.insert(0, str(root))
+    import world_tpu_torch
+    if Path(world_tpu_torch.__file__).resolve().parents[1] != root:
+        print("profile_step: --root needs the script form, python "
+              "world_tpu_torch/tools/profile_step.py", file=sys.stderr)
+        return 2
     from world_tpu_torch.parallel.pipeline import make_batch_step
 
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    x = np.fromfile(os.path.join(root, "tests", GOLDENS[args.fs],
-                                 "x.f64")).astype(np.float32)
+    x = np.fromfile(REPO / "tests" / GOLDENS[args.fs] / "x.f64").astype(
+        np.float32)
     gains = np.linspace(0.5, 1.5, args.batch).astype(np.float32)
     xb = torch.as_tensor(x[None] * gains[:, None], device="cuda")
     step = make_batch_step(args.fs, len(x), rng_mode="fast",
@@ -55,8 +107,18 @@ def main(argv=None):
     for _ in range(2):
         step(xb)
     torch.cuda.synchronize()
-    stages = {}
-    step(xb, timings=stages)
+    step_ms = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        step(xb)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    stage_runs = []
+    for _ in range(REPS):
+        stage_runs.append({})
+        step(xb, timings=stage_runs[-1])
+    stages = {k: float(np.median([r[k] for r in stage_runs]))
+              for k in stage_runs[0]}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -71,21 +133,25 @@ def main(argv=None):
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ops = stage_ops(step, xb)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     result = {
-        "card": card, "fs": args.fs, "batch": args.batch,
-        "f0_method": args.f0_method, "codec_dims": args.codec_dims,
+        "card": card, "root": str(root), "fs": args.fs,
+        "batch": args.batch, "f0_method": args.f0_method,
+        "codec_dims": args.codec_dims,
         "audio_s": args.batch * len(x) / args.fs,
-        "wall_ms": wall_ms, "stage_ms": stages,
+        "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
+        "stage_ms": stages, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms if kernels else "not measured",
         "device_idle_share": (1 - busy_ms / wall_ms) if kernels
         else "not measured",
         "kernels_launched": len(kernels),
         "top_kernels": [{"name": n[:120], "count": c, "ms": ms}
                         for n, (c, ms) in top],
+        "stage_ops": ops,
     }
     text = json.dumps(result)
     print(text)
