@@ -221,9 +221,11 @@ def drive(torch, ola, step, fresh):
     steps, the counts read, and three stage-timed steps.  Returns (the
     last timed step's outputs, step seconds, launches, stage ms,
     recorded inputs)."""
+    from world_tpu_torch.tools.contour_bench import recording
+
     recorded = {}
     with recording_ola(recorded), recording_scan(recorded), \
-            recording_contour(recorded):
+            recording(recorded):
         step(fresh())                               # warm-up
     torch.cuda.synchronize()
     for k in all_kernels(ola):
@@ -285,28 +287,6 @@ def recording_scan(recorded):
         yield recorded
     finally:
         synthesis.cumsum_rows = real
-
-
-@contextlib.contextmanager
-def recording_contour(recorded):
-    """Within the block, the F0 stages' calls of the contour kernels'
-    wrappers leave their arguments in ``recorded["dio_fix_walks"]`` and
-    ``recorded["harvest_fix_step3"]`` as (args, kwargs) (each the first
-    call's)."""
-    from world_tpu_torch.models import dio, harvest_contour
-
-    patched = [(m, n, getattr(m, n)) for m, n in (
-        (dio, "dio_fix_walks"), (harvest_contour, "harvest_fix_step3"))]
-    for module, name, real in patched:
-        def record(*args, _name=name, _real=real, **kwargs):
-            recorded.setdefault(_name, (args, kwargs))
-            return _real(*args, **kwargs)
-        setattr(module, name, record)
-    try:
-        yield recorded
-    finally:
-        for module, name, real in patched:
-            setattr(module, name, real)
 
 
 # The contour kernels' arguments in the phases that are not batch runs:
@@ -484,8 +464,10 @@ def dio_vs_cpu(torch, W, get, scalars):
 def dio_exact(torch, W, get, scalars):
     """float64 Dio and StoneMask on the card against the goldens at
     tests/test_f0.py's gates."""
+    from world_tpu_torch.tools.contour_bench import recording
+
     fs = scalars["fs"]
-    with recording_contour(CONTOUR_INPUTS.setdefault("dio_exact", {})):
+    with recording(CONTOUR_INPUTS.setdefault("dio_exact", {})):
         tp, f0 = W.dio(get("x"), fs, device="cuda")
     tp, f0 = tp.cpu().numpy(), f0.cpu().numpy()
     tp_err = float(np.abs(tp - get("dio_tp")).max())
@@ -864,6 +846,7 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     """300 s of 48 kHz int16 (bench.py:217-225) through analyze_long."""
     from world_tpu_torch.models import codec
     from world_tpu_torch.parallel import analyze_long, longform
+    from world_tpu_torch.tools.contour_bench import recording
 
     t_phase = time.perf_counter()
     get, _ = load_goldens("goldens_fs48")
@@ -894,7 +877,7 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     longform._Batch.__init__, longform._Batch.result = init, result
     try:
         t0 = time.perf_counter()
-        with recording_contour(CONTOUR_INPUTS.setdefault("longform_48k",
+        with recording(CONTOUR_INPUTS.setdefault("longform_48k",
                                                          {})):
             tp, f0, sp, ap = analyze_long(xi, fs, codec_dims=CODEC_DIMS,
                                           batch_lanes=lanes, **kw)
@@ -1020,6 +1003,7 @@ def cli_manip(W, ola, tmp):
 
     from world_tpu_torch.io.audio import wavread, wavwrite
     from world_tpu_torch.tools import cli
+    from world_tpu_torch.tools.contour_bench import recording
 
     t0 = time.perf_counter()
     gold = ROOT / "tests" / "goldens_manip"
@@ -1029,7 +1013,7 @@ def cli_manip(W, ola, tmp):
     os.chdir(tmp)
     try:
         with contextlib.redirect_stdout(io.StringIO()) as log, \
-                recording_scan(SCAN_INPUTS), recording_contour(
+                recording_scan(SCAN_INPUTS), recording(
                     CONTOUR_INPUTS.setdefault("cli_manip", {})):
             rc = cli.main(["test", str(wav), "out.wav", "2.0", "1.5"])
         x, fs, _ = wavread(wav)

@@ -284,7 +284,30 @@ def test_section_capacity():
     assert contour.section_capacity(1) == 1
     assert contour.section_capacity(9, cap=100) == 5
     n_int, n_float = contour.harvest_scratch(794, 397)
-    assert (n_int, n_float) == (6 * 397, 405 * 397 + 4 * 794)
+    assert (n_int, n_float) == (3 + 7 * 397, 405 * 397 + 4 * 794)
+
+
+@pytest.mark.parametrize("n_frames,cap", [(1, None), (794, None),
+                                           (794, 5), (7146, None)])
+def test_harvest_scratch_matches_kernel_layout(n_frames, cap):
+    """The wrapper's scratch is the row the kernel addresses: a header of
+    kHeader ints and kLists lists of kmax; 2 x 2 walks of kSteps values
+    and scores per section, kmax span sums and four frame rows (the
+    constants read from csrc/harvest_contour.cu)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(contour.__file__).parent.parent / "csrc"
+           / "harvest_contour.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    kmax = contour.section_capacity(n_frames, cap)
+    steps = const("kSteps")
+    assert steps == contour.WALK_STEPS
+    assert contour.harvest_scratch(n_frames, kmax) == (
+        const("kHeader") + const("kLists") * kmax,
+        (2 * 2 * steps + 1) * kmax + 4 * n_frames)
 
 
 @pytest.mark.parametrize("call,exc", [

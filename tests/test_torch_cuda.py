@@ -181,11 +181,14 @@ def test_scan_kernel_matches_plain(cuda, dtype):
             (B, L)
 
 
-def dio_walk_rows(rs, F=160, C=7):
+def dio_walk_rows(rs, F=160, C=7, nan=0.0, ends=False):
     """(step2 (F,), cands (C, F)): random rows with short runs around a
-    drifting pitch (some candidates zero), then the edge rows: no voiced
-    frame, sections touching frames 0 and F-1, every frame voiced,
-    sections of 6 frames."""
+    drifting pitch (some candidates zero, a share ``nan`` of them NaN),
+    then the edge rows: no voiced frame, sections touching frames 0 and
+    F-1, every frame voiced, sections of 6 frames; with ``ends`` also two
+    rows whose active runs reach the last frame (FixStep3) and frame 1
+    (FixStep4): one unvoiced boundary each, every candidate near the
+    pitch."""
     rows = []
     for _ in range(4):
         pitch = 150.0 * np.exp(np.cumsum(rs.randn(F) * 0.02))
@@ -193,7 +196,15 @@ def dio_walk_rows(rs, F=160, C=7):
                          pitch * (1 + 0.01 * rs.randn(F)))
         cands = pitch[:, None] * (1.0 + 0.08 * rs.randn(F, C))
         cands[rs.rand(F, C) < 0.3] = 0.0
+        if nan:
+            cands[rs.rand(F, C) < nan] = np.nan
         rows.append((step2, cands.T.copy()))
+    if ends:
+        pitch = 150.0 * np.exp(np.cumsum(rs.randn(F) * 0.002))
+        near = (pitch[:, None] * (1.0 + 0.005 * rs.randn(F, C))).T.copy()
+        cut = min(30, F // 3)
+        rows += [(np.where(np.arange(F) < cut, pitch, 0.0), near),
+                 (np.where(np.arange(F) >= F - cut, pitch, 0.0), near)]
     cands = rows[0][1]
     edge = np.zeros(F)
     edge[:20], edge[F - 15:] = 150.0, 160.0
@@ -205,11 +216,12 @@ def dio_walk_rows(rs, F=160, C=7):
     return rows
 
 
-def harvest_walk_rows(rs, F=400, S=21):
+def harvest_walk_rows(rs, F=400, S=21, nan=0.0):
     """(step2, cands, scores): random grids whose best-scored slot follows
     a drifting pitch through voiced runs, step2 from the port's FixStep1
     and FixStep2; then the edge rows (as dio_walk_rows, sections of 7
-    frames, which FixStep2 keeps)."""
+    frames, which FixStep2 keeps).  A share ``nan`` of the candidates and
+    of the scores is then NaN (step2 is taken before)."""
     rows = []
     for _ in range(4):
         c = np.zeros((F, S))
@@ -219,7 +231,7 @@ def harvest_walk_rows(rs, F=400, S=21):
         while t < F:
             run, gap = rs.randint(1, 60), rs.randint(1, 15)
             for i in range(t, min(F, t + run)):
-                k = rs.randint(1, S)
+                k = rs.randint(1, S) if S > 1 else 1
                 c[i, :k] = pitch[i] * (1.0 + 0.1 * rs.randn(k))
                 s[i, :k] = np.abs(rs.randn(k)) * 3.0
                 c[i, 0], s[i, 0] = pitch[i], 10.0 + rs.rand()
@@ -237,6 +249,10 @@ def harvest_walk_rows(rs, F=400, S=21):
         seven[st:st + 7] = pitch[st:st + 7]
     rows += [(np.zeros(F), c, s), (edge, c, s),
              (np.where(pitch > 0, pitch, 150.0), c, s), (seven, c, s)]
+    if nan:
+        rows = [(step2, np.where(rs.rand(F, S) < nan, np.nan, c),
+                 np.where(rs.rand(F, S) < nan, np.nan, s))
+                for step2, c, s in rows]
     return rows
 
 
@@ -273,6 +289,115 @@ def test_harvest_contour_kernel_matches_plain(cuda, dtype, cap):
     want = contour.harvest_fix_step3_plain(s2, c, s, cap=cap)
     assert torch.equal(got, want), (got != want).any(1)
     assert (got != s2).any()
+
+
+def check_walk(name, args, *rest, **kwargs):
+    """The contour wrapper ``name`` launches its kernel once on ``args``
+    and equals its plain version: NaN at the same frames (a NaN candidate
+    that SelectBestF0 picks passes on), torch.equal at the others."""
+    kernel = getattr(contour, name)
+    before = kernel.launches
+    got = kernel(*args, *rest, **kwargs)
+    assert kernel.launches == before + 1
+    want = getattr(contour, name + "_plain")(*args, *rest, **kwargs)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan]), \
+        (got != want).any(1).nonzero().flatten()
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dio_fix_kernel_runs_to_the_ends_and_nan(cuda, dtype):
+    """Dio's walks kernel == its plain version on rows whose active runs
+    reach the last frame and frame 1, and on rows with NaN candidates."""
+    dt = getattr(torch, dtype)
+    rows = dio_walk_rows(np.random.RandomState(3), ends=True)
+    got = check_walk("dio_fix_walks", on_card(rows, dt, cuda), 0.1)
+    assert bool((got[4, 30:] != 0).all())         # rows 4, 5: ``ends``
+    assert bool((got[5, 1:] != 0).all()) and float(got[5, 0]) == 0.0
+    check_walk("dio_fix_walks", on_card(dio_walk_rows(
+        np.random.RandomState(4), nan=0.05), dt, cuda), 0.1)
+
+
+@pytest.mark.parametrize("F", [9000, 16000])
+def test_dio_fix_kernel_rows_past_shared_memory(cuda, F):
+    """Float64 rows whose band rows (C = 7) do not fit in a block's shared
+    memory (F = 9000: step2 and the output row do; F = 16000: only the
+    boundary masks do): the kernel == its plain version."""
+    rs = np.random.RandomState(F)
+    rows = dio_walk_rows(rs, F=F, ends=True)
+    check_walk("dio_fix_walks", on_card(rows, torch.float64, cuda), 0.1)
+
+
+@pytest.mark.parametrize("S", [1, 31, 33, 105, 126, 160])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_harvest_contour_kernel_slot_counts(cuda, dtype, S):
+    """Harvest's FixStep3 kernel == its plain version at slot counts on
+    both sides of each unrolled count (1-4 slots a lane) and past them
+    (the general loop)."""
+    rows = harvest_walk_rows(np.random.RandomState(S), F=300, S=S)
+    got = check_walk("harvest_fix_step3",
+                     on_card(rows, getattr(torch, dtype), cuda))
+    assert (got != on_card(rows, getattr(torch, dtype), cuda)[0]).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_harvest_contour_kernel_nan(cuda, dtype):
+    """NaN candidates and NaN scores in the walks' frames (and in the
+    frame-score pass): the kernel == its plain version."""
+    rows = harvest_walk_rows(np.random.RandomState(5), nan=0.03)
+    check_walk("harvest_fix_step3",
+               on_card(rows, getattr(torch, dtype), cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_harvest_contour_kernel_ties(cuda, dtype):
+    """Walk frames whose candidates lie at equal distances from the pitch
+    (P - 20 and P + 20: equal errors, the later slot wins), one step of
+    the type's resolution beyond (a near tie, whose quotient the kernel
+    takes slot by slot), at P itself and at 0, shuffled over the slots:
+    the kernel == its plain version."""
+    dt = getattr(torch, dtype)
+    rs = np.random.RandomState(9)
+    F, S, P = 300, 8, 140.0
+    up = np.nextafter(np.array(P + 20.0, dtype=dtype), np.inf)
+    base = np.array([P - 20.0, P + 20.0, float(up), P, 0.0, 0.0, 2 * P,
+                     P + 20.0])
+    rows = []
+    for _ in range(4):
+        c = np.stack([rs.permutation(np.where(
+            (base == P) & (rs.rand() < 0.5), 0.0, base)) for _ in range(F)])
+        s = rs.rand(F, S) * 5.0
+        step2 = np.zeros(F)
+        for st in range(rs.randint(5, 20), F - 30, rs.randint(40, 70)):
+            step2[st:st + rs.randint(7, 25)] = P
+        rows.append((step2, c, s))
+    got = check_walk("harvest_fix_step3", on_card(rows, dt, cuda))
+    assert (got != on_card(rows, dt, cuda)[0]).any()
+
+
+def test_harvest_contour_kernel_more_walks_than_warps(cuda):
+    """A row of 7,146 frames with a 7-frame section every 14 (where the
+    grid is voiced: K = 486, so 972 walks, more than the 128 warps of a
+    row's cluster), beside a random row: the kernel == its plain
+    version."""
+    rows = harvest_walk_rows(np.random.RandomState(6), F=7146)
+    seven = rows[-1][0]
+    assert int(((seven[1:] != 0) & (seven[:-1] == 0)).sum()) > 450
+    check_walk("harvest_fix_step3",
+               on_card([rows[0], rows[-1]], torch.float32, cuda))
+
+
+@pytest.mark.parametrize("B", [1, 40])
+def test_harvest_contour_kernel_batch_sizes(cuda, B):
+    """One row, and 40 rows (320 blocks: more clusters than the card holds
+    at once): the kernel == its plain version."""
+    rs = np.random.RandomState(B)
+    rows = []
+    while len(rows) < B:
+        rows += harvest_walk_rows(rs, F=300)
+    check_walk("harvest_fix_step3", on_card(rows[:B], torch.float32, cuda))
 
 
 def recorded_walks(fs, gold, method, dtype, cuda):

@@ -22,30 +22,36 @@
 // -fmad=false), and the divisions are IEEE.  So the kernel equals the
 // plain version bit for bit.
 //
-// Bound: the chain.  A row's walk is one dependent sequence (each active
-// frame's reference depends on the last two values), two divides deep per
-// active frame; bytes (step2, cands and the output, once each) are far
-// below it.
+// Bound: the chain.  A row's walk is one dependent sequence through its
+// active frames (each one's reference depends on the last two values),
+// two divides deep per active frame; bytes (step2, cands and the output,
+// once each) are far below it.  Only a few frames of a row are active, so
+// in practice the launch sets the floor.
 //
-// Design.  One block per row; one thread (thread 0) walks it, as a row has
-// nothing to share out: C = 7 bands at the default options.  The block's
-// other threads stage the walk's frames into shared memory, kTile frames
-// at a time, each band's frames read contiguously from the (B, C, F)
-// layout the band stage writes (no transposed copy); thread 0 then reads
-// the frame's C candidates from shared memory.  FixStep4 starts after
-// FixStep3 in the same thread, reading FixStep3's values back from the
-// output row, so no barrier across blocks is needed.
+// Design.  One block per row.  The block stages the row once in shared
+// memory: step2, the output row (step2's values to start with) and the C
+// band rows, each read contiguously from the (B, C, F) layout the band
+// stage writes, and it marks the walks' boundary frames in two bit masks
+// by ballots.  A row whose bands do not fit in shared memory leaves them
+// in device memory (then the rows too where those do not fit, and the
+// masks last, where the walker tests step2 frame by frame).  One thread
+// then walks only the active runs: from each boundary that no earlier run
+// covered (__ffs over the masks) until a zero is selected, reading the
+// last two values from the row.  FixStep4 works in place on the row that
+// FixStep3 left, from the top boundary down.  The block writes the row
+// once, coalesced.
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cmath>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 128;              // frames staged per tile
+constexpr int kThreads = 256;
 constexpr int kSmemDefault = 48 * 1024;  // no opt-in needed below this
+
+// What a row keeps in shared memory, each level adding to the last.
+enum Level { kNothing = 0, kMasks = 1, kRows = 2, kBands = 3 };
 
 template <typename T> struct Rn;
 template <> struct Rn<float> {
@@ -68,7 +74,7 @@ __device__ T select_best(T current, T past, const T* c, int stride, int C,
   T best = c[0];
   T best_err = fabs(Rn<T>::sub(reference, best));
   for (int k = 1; k < C; ++k) {
-    const T v = c[k * stride];
+    const T v = c[static_cast<size_t>(k) * stride];
     const T e = fabs(Rn<T>::sub(reference, v));
     if (!isnan(best_err) && (isnan(e) || e < best_err)) {
       best = v;
@@ -79,105 +85,160 @@ __device__ T select_best(T current, T past, const T* c, int stride, int C,
   return fabs(Rn<T>::sub(T(1), ratio)) > allowed ? T(0) : best;
 }
 
-// Stages frames [t0, t0 + n) of the row: every band's candidates into
-// s_c[band * tile + j], step2 into s_v, and (step4) the output row into
-// s_o.
+// FixStep3 starts at t (t-1 voiced, t not); FixStep4 at t > 0 (t
+// unvoiced, t+1 voiced).
 template <typename T>
-__device__ void stage(const T* cr, const T* s2, const T* o, T* s_c, T* s_v,
-                      T* s_o, int C, int F, int tile, int t0, int n) {
-  for (int i = threadIdx.x; i < C * tile; i += kThreads) {
-    const int c = i / tile, j = i - c * tile;
-    if (j < n) s_c[i] = cr[static_cast<size_t>(c) * F + t0 + j];
+__device__ bool start3(const T* s2, int t, int F) {
+  return t >= 1 && t < F && s2[t - 1] != T(0) && s2[t] == T(0);
+}
+template <typename T>
+__device__ bool start4(const T* s2, int t, int F) {
+  return t >= 1 && t + 1 < F && s2[t] == T(0) && s2[t + 1] != T(0);
+}
+
+// The first FixStep3 start at or after t (F if none): from the mask, or
+// frame by frame where there is none.
+template <typename T>
+__device__ int next_start3(const unsigned* m, const T* s2, int t, int F) {
+  if (m == nullptr) {
+    while (t < F && !start3(s2, t, F)) ++t;
+    return t;
   }
-  for (int j = threadIdx.x; j < n; j += kThreads) {
-    s_v[j] = s2[t0 + j];
-    if (s_o != nullptr) s_o[j] = o[t0 + j];
+  const int words = (F + 31) / 32;
+  int w = t >> 5;
+  if (w >= words) return F;
+  unsigned bits = m[w] & (~0u << (t & 31));
+  while (bits == 0) {
+    if (++w >= words) return F;
+    bits = m[w];
   }
+  return (w << 5) + __ffs(bits) - 1;
+}
+
+// The last FixStep4 start at or before t (0 if none).
+template <typename T>
+__device__ int prev_start4(const unsigned* m, const T* s2, int t, int F) {
+  if (m == nullptr) {
+    while (t >= 1 && !start4(s2, t, F)) --t;
+    return max(t, 0);
+  }
+  if (t < 1) return 0;
+  int w = t >> 5;
+  unsigned bits = m[w] & (~0u >> (31 - (t & 31)));
+  while (bits == 0) {
+    if (--w < 0) return 0;
+    bits = m[w];
+  }
+  return (w << 5) + 31 - __clz(bits);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dio_fix_kernel(const T* __restrict__ step2, const T* __restrict__ cands,
-               T* out, int C, int F, int tile, T allowed) {
+               T* out, int C, int F, int level, T allowed) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_c = reinterpret_cast<T*>(smem_raw);   // [C][tile]
-  T* s_v = s_c + C * tile;                   // step2, [tile]
-  T* s_o = s_v + tile;                       // FixStep3's values, [tile]
   const size_t row = blockIdx.x;
-  const T* s2 = step2 + row * F;
-  const T* cr = cands + row * C * static_cast<size_t>(F);
-  T* o = out + row * F;
-  const bool walker = threadIdx.x == 0;
+  const T* s2g = step2 + row * F;
+  const T* cg = cands + row * C * static_cast<size_t>(F);
+  T* og = out + row * F;
+  const int words = (F + 31) / 32;
+  // Shared memory: the masks (an even word count keeps the rows aligned),
+  // then step2 and the output row, then the bands.
+  unsigned* m3 = level >= kMasks ? reinterpret_cast<unsigned*>(smem_raw)
+                                 : nullptr;
+  unsigned* m4 = level >= kMasks ? m3 + words : nullptr;
+  T* s2s = reinterpret_cast<T*>(smem_raw + 4 * 2 * ((words + 1) & ~1));
+  const T* s2 = level >= kRows ? s2s : s2g;
+  T* r = level >= kRows ? s2s + F : og;
+  T* cs = s2s + 2 * static_cast<size_t>(F);
+  const T* c = level >= kBands ? cs : cg;
 
-  // FixStep3, forward.  Thread 0's state: the last two values, whether
-  // the walk is active, whether step2 was voiced at the frame before.
-  T prev1 = s2[0], prev2 = T(0);
-  bool active = false, voiced_before = s2[0] != T(0);
-  if (walker) o[0] = s2[0];
-  for (int t0 = 1; t0 < F; t0 += tile) {
-    const int n = min(tile, F - t0);
-    __syncthreads();                           // the last tile is used up
-    stage(cr, s2, o, s_c, s_v, static_cast<T*>(nullptr), C, F, tile, t0, n);
-    __syncthreads();
-    if (walker) {
-      for (int j = 0; j < n; ++j) {
-        const T v2 = s_v[j];
-        const bool voiced = v2 != T(0);
-        active = active || (voiced_before && !voiced);
-        voiced_before = voiced;
-        const T val =
-            active ? select_best(prev1, prev2, s_c + j, tile, C, allowed)
-                   : v2;
-        active = active && val != T(0);
-        prev2 = prev1;
-        prev1 = val;
-        o[t0 + j] = val;
+  for (int t = threadIdx.x; t < F; t += kThreads) {
+    const T v = s2g[t];
+    if (level >= kRows) s2s[t] = v;
+    r[t] = v;
+  }
+  if (level >= kBands) {
+    for (int i = threadIdx.x; i < C * F; i += kThreads) cs[i] = cg[i];
+  }
+  if (level >= kMasks) {
+    const int lane = threadIdx.x & 31;
+    for (int w = threadIdx.x >> 5; w < words; w += kThreads / 32) {
+      const int t = 32 * w + lane;
+      const unsigned b3 = __ballot_sync(0xffffffffu, start3(s2g, t, F));
+      const unsigned b4 = __ballot_sync(0xffffffffu, start4(s2g, t, F));
+      if (lane == 0) {
+        m3[w] = b3;
+        m4[w] = b4;
       }
     }
   }
+  __syncthreads();
 
-  // FixStep4, backward over FixStep3's values (the output row, written
-  // by this block's thread 0 before the barrier that opens each tile).
-  if (F < 2) return;
-  T next1 = walker ? o[F - 1] : T(0), next2 = T(0);
-  bool voiced_after = s2[F - 1] != T(0);
-  active = false;
-  for (int t1 = F - 1; t1 > 0; t1 -= tile) {   // frames [t1 - n, t1)
-    const int n = min(tile, t1);
-    const int t0 = t1 - n;
-    __syncthreads();
-    stage(cr, s2, o, s_c, s_v, s_o, C, F, tile, t0, n);
-    __syncthreads();
-    if (walker) {
-      for (int j = n - 1; j >= 0; --j) {
-        const int t = t0 + j;
-        const bool voiced = s_v[j] != T(0);
-        active = active || (!voiced && voiced_after);
-        voiced_after = voiced;
-        const T val =
-            (t > 0 && active)
-                ? select_best(next1, next2, s_c + j, tile, C, allowed)
-                : s_o[j];
-        active = active && val != T(0);
-        next2 = next1;
-        next1 = val;
-        o[t] = val;
-      }
+  if (threadIdx.x == 0) {
+    // FixStep3: each run from a start no earlier run reached, until a
+    // zero is selected; t is the first frame no run has decided.
+    int t = 1, b;
+    while ((b = next_start3(m3, s2, t, F)) < F) {
+      T p1 = r[b - 1], p2 = b >= 2 ? r[b - 2] : T(0), v;
+      int u = b;
+      do {
+        v = select_best(p1, p2, c + u, F, C, allowed);
+        r[u++] = v;
+        p2 = p1;
+        p1 = v;
+      } while (v != T(0) && u < F);
+      t = u;
     }
+    // FixStep4, in place: each run from a start no later run reached,
+    // down to a zero or frame 1.
+    t = F - 2;
+    while ((b = prev_start4(m4, s2, t, F)) >= 1) {
+      T n1 = r[b + 1], n2 = b + 2 < F ? r[b + 2] : T(0), v;
+      int u = b;
+      do {
+        v = select_best(n1, n2, c + u, F, C, allowed);
+        r[u--] = v;
+        n2 = n1;
+        n1 = v;
+      } while (v != T(0) && u >= 1);
+      t = u;
+    }
+  }
+  if (level >= kRows) {
+    __syncthreads();
+    for (int t = threadIdx.x; t < F; t += kThreads) og[t] = r[t];
   }
 }
 
 template <typename T>
 int launch(const void* step2, const void* cands, void* out, int B, int C,
            int F, double allowed, cudaStream_t stream) {
-  // Frames per tile: kTile, fewer where many bands would pass the shared
-  // memory a block gets without opting in.
-  const int per_frame = (C + 2) * static_cast<int>(sizeof(T));
-  const int tile = std::min(kTile, kSmemDefault / per_frame);
-  if (tile < 1) return static_cast<int>(cudaErrorInvalidValue);
-  dio_fix_kernel<T><<<B, kThreads, tile * per_frame, stream>>>(
+  int device = 0, most = kSmemDefault;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t words = (static_cast<size_t>(F) + 31) / 32;
+  const size_t masks = 4 * 2 * ((words + 1) & ~size_t(1));
+  const size_t rows = masks + 2 * static_cast<size_t>(F) * sizeof(T);
+  const size_t bands = rows + static_cast<size_t>(C) * F * sizeof(T);
+  const size_t cap = static_cast<size_t>(most);
+  const int level = bands <= cap ? kBands : rows <= cap ? kRows
+                    : masks <= cap ? kMasks : kNothing;
+  const size_t smem = level == kBands ? bands : level == kRows ? rows
+                      : level == kMasks ? masks : 0;
+  if (smem > static_cast<size_t>(kSmemDefault)) {
+    e = cudaFuncSetAttribute(
+        dio_fix_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dio_fix_kernel<T><<<B, kThreads, smem, stream>>>(
       static_cast<const T*>(step2), static_cast<const T*>(cands),
-      static_cast<T*>(out), C, F, tile, static_cast<T>(allowed));
+      static_cast<T*>(out), C, F, level, static_cast<T>(allowed));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,7 +246,7 @@ int launch(const void* step2, const void* cands, void* out, int B, int C,
 
 // step2 and out: contiguous (B, F); cands: contiguous (B, C, F); all float
 // (elt_bytes 4) or double (8).  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for an unknown element size or too many bands).
+// (cudaErrorInvalidValue for an unknown element size).
 extern "C" int dio_fix_launch(int elt_bytes, const void* step2,
                               const void* cands, void* out, int B, int C,
                               int F, double allowed, void* stream) {

@@ -138,10 +138,11 @@ def section_capacity(n_frames, cap=None):
 
 def harvest_scratch(n_frames, kmax):
     """(int32 elements, float elements) of one row's scratch, in the
-    layout csrc/harvest_contour.cu reads: six section lists of ``kmax``;
-    two walks' values and frame scores per section, the sections' span
-    sums, and four frame rows."""
-    return 6 * kmax, (4 * WALK_STEPS + 1) * kmax + 4 * n_frames
+    layout csrc/harvest_contour.cu reads: the section count, K and a
+    counter of frame groups, then seven section lists of ``kmax``; two
+    walks' values and frame scores per section, the sections' span sums,
+    and four frame rows."""
+    return 3 + 7 * kmax, (4 * WALK_STEPS + 1) * kmax + 4 * n_frames
 
 
 def harvest_fix_step3(step2, cands, scores, allowed_range=0.18, cap=None):

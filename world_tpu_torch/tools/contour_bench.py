@@ -1,6 +1,20 @@
 """Time the contour-walk kernels (csrc/dio_fix.cu, csrc/harvest_contour.cu)
 on the card against their plain versions and their bounds.
 
+    python world_tpu_torch/tools/contour_bench.py [--root DIR]
+        [--inputs FILE] [--out FILE]
+
+records each wrapper's arguments from 16-row float32 batch steps of the
+golden utterances (rows at gains 0.5-1.5) at 22.05 and 48 kHz, Dio's and
+Harvest's, and from the first Harvest batch of 300 s of 48 kHz int16
+through ``analyze_long`` (chip_smoke.py's longform_48k: 16 chunks of
+6.25 s), then ``measure``s that checkout's kernels on them, one JSON line
+per case.  ``--root`` imports world_tpu_torch from another checkout (for
+example the parent commit, unpacked with ``git archive``), so its
+kernels are timed by the same code; ``--inputs`` saves the recorded
+tensors to FILE, or loads them where FILE exists, so that every checkout
+is timed on the same tensors.
+
 chip_smoke.py records each wrapper's arguments on the paths that call it
 and hands them to ``measure``, which checks the kernel against its plain
 version (torch.equal) and reports:
@@ -19,17 +33,25 @@ version (torch.equal) and reports:
                    card (tools/div_chain.cu): a Dio row's SelectBestF0
                    calls (one IEEE divide each), a Harvest row's longest
                    walk plus its sections' ExtendSub means;
+  step_ns          device_ms over the chain's steps (chain_divides): the
+                   time per dependent step;
   library_ms       null: no single PyTorch call computes these functions.
 Needs a CUDA device.
 """
 
+import argparse
+import contextlib
 import ctypes
 import functools
+import json
+import os
+import sys
 from pathlib import Path
 
 import numpy as np
 
 DIV_SRC = Path(__file__).with_name("div_chain.cu")
+REPO = Path(__file__).resolve().parents[2]
 
 
 def build_div():
@@ -167,7 +189,7 @@ def measure(torch, name, args, kwargs, flush):
         n_ops = total * 5 * S + 4 * B * F * S
     bound_ms, bound_by = bench.bound(nbytes, n_ops, dtype)
     latency = div_latency_ns(torch, dtype)
-    return {
+    out = {
         "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
         "dtype": dtype, "equal": bool(torch.equal(got, want)),
         "max_abs_err": float((got - want).abs().max()) if got.numel()
@@ -184,5 +206,114 @@ def measure(torch, name, args, kwargs, flush):
         "operations": n_ops, "chain_divides": divides,
         "div_latency_ns": latency,
         "chain_bound_ms": divides * latency * 1e-6,
-        "library_ms": None, "library_device_ms": None,
+        "library_ms": None, "library_device_ms": None, "step_ns": None,
     }
+    if divides and out["device_ms"] is not None:
+        out["step_ns"] = out["device_ms"] * 1e6 / divides
+    return out
+
+
+@contextlib.contextmanager
+def recording(recorded):
+    """Within the block, the first call of each contour wrapper from the
+    F0 stages leaves its (args, kwargs) in ``recorded[wrapper name]``."""
+    from world_tpu_torch.models import dio, harvest_contour
+
+    patched = [(m, n, getattr(m, n)) for m, n in (
+        (dio, "dio_fix_walks"), (harvest_contour, "harvest_fix_step3"))]
+    for module, name, real in patched:
+        def record(*args, _name=name, _real=real, **kwargs):
+            recorded.setdefault(_name, (args, kwargs))
+            return _real(*args, **kwargs)
+        setattr(module, name, record)
+    try:
+        yield recorded
+    finally:
+        for module, name, real in patched:
+            setattr(module, name, real)
+
+
+def record_inputs(torch):
+    """{case: (wrapper name, args, kwargs)} on the card: the batch steps'
+    calls (dio_22k, harvest_22k, dio_48k, harvest_48k) and the long-form
+    batch's (harvest_longform)."""
+    from world_tpu_torch.parallel import analyze_long, pipeline
+
+    cases = {}
+    for tag, gold, fs in (("22k", "goldens", 22050),
+                          ("48k", "goldens_fs48", 48000)):
+        x = np.fromfile(REPO / "tests" / gold / "x.f64")
+        xb = (x[None] * np.linspace(0.5, 1.5, 16)[:, None]).astype(
+            np.float32)
+        for method, name in (("dio", "dio_fix_walks"),
+                             ("harvest", "harvest_fix_step3")):
+            with recording({}) as rec:
+                pipeline.make_batch_step(fs, xb.shape[1], f0_method=method,
+                                         with_synthesis=False,
+                                         device="cuda")(xb)
+            cases[f"{method}_{tag}"] = (name, *rec[name])
+    # chip_smoke.py's longform_48k signal.
+    fs = 48000
+    x48 = np.fromfile(REPO / "tests" / "goldens_fs48" / "x.f64")
+    n = 300 * fs
+    base = np.tile(x48, int(np.ceil(n / len(x48))))[:n]
+    scale = 0.4 + 0.4 * np.random.default_rng(20261016).random()
+    xi = (np.clip(base * scale, -0.999, 0.999) * 32767).astype(np.int16)
+    with recording({}) as rec:
+        analyze_long(xi, fs, chunk_seconds=6.25, f0_method="harvest",
+                     codec_dims=64, batch_lanes=16, device="cuda")
+    cases["harvest_longform"] = ("harvest_fix_step3",
+                                 *rec["harvest_fix_step3"])
+    torch.cuda.synchronize()
+    return cases
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout to import world_tpu_torch from")
+    ap.add_argument("--inputs", default=None,
+                    help="save the recorded tensors here, or load them")
+    ap.add_argument("--out", default=None, help="also append lines here")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("contour_bench: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root or REPO)
+    sys.path.insert(0, root)
+    import world_tpu_torch
+    if Path(world_tpu_torch.__file__).resolve().parents[1] != Path(root):
+        print("contour_bench: --root needs the script form, python "
+              "world_tpu_torch/tools/contour_bench.py", file=sys.stderr)
+        return 2
+    from world_tpu_torch.tools import ola_bench as bench
+
+    if args.inputs and os.path.exists(args.inputs):
+        saved = torch.load(args.inputs)
+        cases = {k: (name, [a.cuda() if torch.is_tensor(a) else a
+                            for a in a_], kw)
+                 for k, (name, a_, kw) in saved.items()}
+    else:
+        cases = record_inputs(torch)
+        if args.inputs:
+            torch.save({k: (name, [a.cpu() if torch.is_tensor(a) else a
+                                   for a in a_], kw)
+                        for k, (name, a_, kw) in cases.items()},
+                       args.inputs)
+    card = bench.card_name()
+    flush = bench.l2_flush(torch)
+    with open(args.out, "a") if args.out else contextlib.nullcontext() as f:
+        for case, (name, a_, kw) in cases.items():
+            line = json.dumps({"root": root, "card": card, "case": case,
+                               "wrapper": name,
+                               **measure(torch, name, a_, kw, flush)})
+            print(line, flush=True)
+            if f:
+                f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
