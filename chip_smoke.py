@@ -5,26 +5,38 @@
 
 Phases, one JSON line each, in this order:
   device    torch version, card name, nvidia-smi name and power limit
-  build     nvcc builds of every csrc/*.cu kernel and of the dependent-add
-            and dependent-divide microbenchmarks, started together
+  build     nvcc builds of every csrc/*.cu kernel and of the dependent-add,
+            dependent-divide and IIR-chain microbenchmarks, started
+            together
   window_starts  fs-derived window positions on the card == on the CPU
   main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
             in float32 fast mode, gated against the C++ goldens;
-            launches of every kernel (the ragged mode, the scan and
-            Harvest's contour kernel must have launched); stage ms
+            launches of every kernel (the ragged mode, the scan,
+            Harvest's contour kernel and the block-LTI state scan must
+            have launched); stage ms
   main_48k  the same at 48 kHz (fft 2048)
   dio_22k   the JAX package's default step, make_batch_step(22050, ...,
             f0_method="dio", codec_dims=64): Dio -> StoneMask ->
             CheapTrick -> D4C -> codec -> Synthesis at batch 16, float32
             fast mode; F0 gated against the golden StoneMask track, coded
             sp/ap against the codec of a full step, the ragged and scan
-            kernels and Dio's contour kernel launched; stage ms
+            kernels and Dio's contour kernel launched (Dio at its default
+            speed 1 does not decimate); stage ms
   dio_48k   the same at 48 kHz
   dio_vs_cpu  row 0 of dio_22k's batch, rng_mode "none", on the card
             against the same step on the CPU
   dio_exact float64 Dio and StoneMask on the card against the goldens
   codec_exact  the four codec functions, float64, on the card against
             the goldens
+  exact_path  the package's default entry points, W.analyze(x, fs) then
+            W.synthesize(p) (float64, Harvest, the reference RNG) on the
+            card at 22.05 kHz (tests/vaiueo2d.wav) and 48 kHz
+            (tests/goldens_fs48/x.f64): f0, sp, ap and y against the
+            goldens at the float64 gates of tests/test_torch_pipeline.py
+            and tests/test_torch_crossrate.py; wall s and RTF of a
+            second call, its top-level torch calls (below 20,000 at 22.05
+            kHz) and kernel launches (iir_zero_phase and randn_span at
+            least once)
   kernels   the overlap-add kernel in both modes (general: padded
             (B, P, fft) with offsets in any order; ragged: real pulses
             with CSR rows and ascending offsets) against its plain
@@ -121,14 +133,32 @@ Phases, one JSON line each, in this order:
             (torch.equal), with its times, the plain version's, the
             bytes bound and the chain bound (dependent divides x the
             latency of one, world_tpu_torch/tools/div_chain.cu)
+  iir_kernels  the IIR kernels and the RNG span kernel on the arguments
+            their wrappers received (world_tpu_torch/tools/iir_bench.py):
+            iir_zero_phase (float64 decimation and smoothing) in
+            exact_path and cli_manip; lti_state_scan (the block-LTI
+            state) in main_22k, main_48k and the first batch of
+            longform_48k; randn_span in exact_path's four
+            calls a rate, stream_exact_22k and cli_manip; each against
+            its plain version (NaN at the same places, torch.equal
+            elsewhere), with its times, the plain version's, the bytes or
+            operations bound and, for the recurrences, the chain bound
+            (dependent steps x the latency of one,
+            world_tpu_torch/tools/iir_chain.cu)
   stage_ops the top-level torch ops each stage of one batch step issues
             (world_tpu_torch/tools/profile_step.py: stage_ops) for the
-            four batch steps, and the contour kernels' launches in it:
+            four batch steps and the float64 exact Harvest step at 22.05
+            kHz, and the kernels' launches in it (STAGE_OPS_LIMITS):
             dio.fix at most 50 ops and one dio_fix_walks launch,
-            harvest.contour at most 350 and one harvest_fix_step3 launch
-Then the kernels summary line (ragged, scan and contour launches summed
-over the four batch runs, the cli_* phases and the mesh phases, general
-launches over the streaming, long-form and cli_* phases),
+            harvest.contour at most 350 (400 in float64) and one
+            harvest_fix_step3 launch, harvest.decimate at most 50, with
+            four lti_state_scan launches a float32 Harvest step and two
+            iir_zero_phase launches a float64 one
+Then the kernels summary line (ragged, scan, contour and state-scan
+launches summed over the four batch runs, the cli_* phases and the mesh
+phases, general launches over the streaming, long-form and cli_*
+phases, iir_zero_phase and randn_span launches over exact_path and the
+cli_* phases),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -221,11 +251,12 @@ def drive(torch, ola, step, fresh):
     steps, the counts read, and three stage-timed steps.  Returns (the
     last timed step's outputs, step seconds, launches, stage ms,
     recorded inputs)."""
+    from world_tpu_torch.tools import iir_bench
     from world_tpu_torch.tools.contour_bench import recording
 
     recorded = {}
     with recording_ola(recorded), recording_scan(recorded), \
-            recording(recorded):
+            recording(recorded), iir_bench.recording(recorded):
         step(fresh())                               # warm-up
     torch.cuda.synchronize()
     for k in all_kernels(ola):
@@ -292,6 +323,9 @@ def recording_scan(recorded):
 # The contour kernels' arguments in the phases that are not batch runs:
 # CONTOUR_INPUTS[phase][wrapper name] = (args, kwargs).
 CONTOUR_INPUTS = {}
+# The IIR and RNG span wrappers' calls in those phases:
+# IIR_INPUTS[phase][wrapper name] = [(args, kwargs), ...].
+IIR_INPUTS = {}
 
 
 def batch_maker(torch, x, seed=20261016):
@@ -514,6 +548,87 @@ def codec_exact(torch, W, get, scalars):
     check(err["decoded_ap"] <= 1e-10, f"codec_exact: decoded ap {err}")
     check(err["coded_sp"] <= 1e-9, f"codec_exact: coded sp {err}")
     check(rel <= 1e-9, f"codec_exact: decoded sp rel {rel}")
+
+
+# The default entry points' runs: (phase, goldens, VUV above, and sp
+# held as dB (median, max) at 22.05 kHz, tests/test_torch_pipeline.py's
+# gate, or as relative error (median, max) at 48 kHz,
+# tests/test_torch_crossrate.py's).  Both: < 1 cent RMS, ap within 1e-5
+# (the D4C golden gate), y above 100 dB.
+EXACT_RATES = (("exact_22k", "goldens", 0.99, ("db", 1e-9, 1e-3)),
+               ("exact_48k", "goldens_fs48", 0.98, ("rel", 1e-6, 1e-2)))
+EXACT_CALLS_MOST = 20000    # top-level torch calls of one 22.05 kHz pass
+
+
+def exact_path(torch, W, ola, tag, gold, vuv_min, sp_gate):
+    """W.analyze(x, fs) then W.synthesize(p) with their defaults (float64,
+    Harvest, the reference RNG, on the card): a first call that records
+    the IIR and RNG span wrappers' inputs, a timed second call with the
+    kernel counts set to 0 before it and read after, and a third that
+    counts its top-level torch calls; the second's outputs against the
+    goldens.  Returns the launches."""
+    from world_tpu_torch.io.audio import wavread
+    from world_tpu_torch.tools import iir_bench
+
+    get, sc = load_goldens(gold)
+    fs = sc["fs"]
+    if gold == "goldens":
+        x, wav_fs, _ = wavread(ROOT / "tests" / "vaiueo2d.wav")
+        check(wav_fs == fs, f"{tag}: wav at {wav_fs} Hz")
+    else:
+        x = get("x")
+
+    def run():
+        p = W.analyze(x, fs)
+        y = W.synthesize(p)
+        torch.cuda.synchronize()
+        return p, y
+
+    with iir_bench.recording(IIR_INPUTS.setdefault(tag, {})):
+        run()
+    zero_counts(ola)
+    t0 = time.perf_counter()
+    p, y = run()
+    wall = time.perf_counter() - t0
+    launches = read_counts(ola)
+    _, calls = iir_bench.count_torch_calls(torch, run)
+
+    f0 = p.f0.cpu().numpy()
+    vuv, cents = f0_stats(f0, get("harvest_f0"))
+    sp, ref_sp = p.spectrogram.cpu().numpy(), get("cheaptrick_sp")
+    kind, med_most, max_most = sp_gate
+    sp_err = (10 * np.abs(np.log10(sp) - np.log10(ref_sp)) if kind == "db"
+              else np.abs(sp - ref_sp) / ref_sp)
+    ap_err = float(np.abs(p.aperiodicity.cpu().numpy()
+                          - get("d4c_ap")).max())
+    ref_y, y = get("synthesis_y"), y.cpu().numpy()
+    same_len = len(y) == len(ref_y)
+    snr = float(10 * np.log10(np.sum(ref_y ** 2)
+                              / np.sum((ref_y - y) ** 2))) if same_len \
+        else None
+    result = {
+        "fs": fs, "samples": len(x), "dtype": str(p.f0.dtype),
+        "device": str(p.f0.device), "wall_s": wall,
+        "rtf": len(x) / fs / wall, "torch_calls": calls,
+        "launches": launches, "vuv_agreement": vuv, "cents_rms": cents,
+        f"sp_{kind}_median": float(np.median(sp_err)),
+        f"sp_{kind}_max": float(sp_err.max()), "ap_max_abs_err": ap_err,
+        "y_snr_db": snr}
+    emit(tag, **result)
+    check(result["device"].startswith("cuda"), f"{tag}: not on the card")
+    check(vuv > vuv_min and cents < 1.0,
+          f"{tag}: VUV {vuv}, {cents} cents RMS")
+    check(np.median(sp_err) < med_most and sp_err.max() < max_most,
+          f"{tag}: sp {kind} {np.median(sp_err)}, {sp_err.max()}")
+    check(ap_err < 1e-5, f"{tag}: ap {ap_err}")
+    check(same_len and snr > 100.0, f"{tag}: y {snr} dB")
+    if fs == 22050:
+        check(calls < EXACT_CALLS_MOST,
+              f"{tag}: {calls} top-level torch calls")
+    for k in path_kernels(ola, "harvest", exact=True):
+        check(launches[k.__name__] > 0, f"{tag}: {k.__name__} never "
+              "launched")
+    return launches
 
 
 STREAM_RATES = (("22k", "goldens"), ("48k", "goldens_fs48"))
@@ -846,6 +961,7 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     """300 s of 48 kHz int16 (bench.py:217-225) through analyze_long."""
     from world_tpu_torch.models import codec
     from world_tpu_torch.parallel import analyze_long, longform
+    from world_tpu_torch.tools import iir_bench
     from world_tpu_torch.tools.contour_bench import recording
 
     t_phase = time.perf_counter()
@@ -877,8 +993,9 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     longform._Batch.__init__, longform._Batch.result = init, result
     try:
         t0 = time.perf_counter()
-        with recording(CONTOUR_INPUTS.setdefault("longform_48k",
-                                                         {})):
+        with recording(CONTOUR_INPUTS.setdefault("longform_48k", {})), \
+                iir_bench.recording(IIR_INPUTS.setdefault("longform_48k",
+                                                          {})):
             tp, f0, sp, ap = analyze_long(xi, fs, codec_dims=CODEC_DIMS,
                                           batch_lanes=lanes, **kw)
         wall = time.perf_counter() - t0
@@ -1002,7 +1119,7 @@ def cli_manip(W, ola, tmp):
     import os
 
     from world_tpu_torch.io.audio import wavread, wavwrite
-    from world_tpu_torch.tools import cli
+    from world_tpu_torch.tools import cli, iir_bench
     from world_tpu_torch.tools.contour_bench import recording
 
     t0 = time.perf_counter()
@@ -1014,7 +1131,8 @@ def cli_manip(W, ola, tmp):
     try:
         with contextlib.redirect_stdout(io.StringIO()) as log, \
                 recording_scan(SCAN_INPUTS), recording(
-                    CONTOUR_INPUTS.setdefault("cli_manip", {})):
+                    CONTOUR_INPUTS.setdefault("cli_manip", {})), \
+                iir_bench.recording(IIR_INPUTS.setdefault("cli_manip", {})):
             rc = cli.main(["test", str(wav), "out.wav", "2.0", "1.5"])
         x, fs, _ = wavread(wav)
         p = W.analyze(x, fs, f0_option=W.HarvestOption(f0_floor=40.0),
@@ -1040,7 +1158,7 @@ def cli_manip(W, ola, tmp):
     check(rc == 0, f"cli_manip: rc {rc}")
     for k, v in res.items():
         check_lsb(v, f"cli_manip {k}")
-    for k in path_kernels(ola, "harvest") + [ola.ola_accumulate]:
+    for k in path_kernels(ola, "harvest", exact=True) + [ola.ola_accumulate]:
         check(launches[k.__name__] > 0,
               f"cli_manip: {k.__name__} never launched")
     return launches
@@ -1664,65 +1782,165 @@ def scaling_phase(torch, sizes=(1, 2)):
 
 def all_kernels(ola):
     """Every kernel wrapper of the port (each counts its launches)."""
-    from world_tpu_torch.ops import contour, scan
+    from world_tpu_torch.ops import contour, iir, rng, scan
 
     return [ola.ola_accumulate, ola.ola_accumulate_ragged, scan.cumsum_rows,
-            contour.dio_fix_walks, contour.harvest_fix_step3]
+            contour.dio_fix_walks, contour.harvest_fix_step3,
+            iir.iir_zero_phase, iir.lti_state_scan, rng.randn_span]
 
 
-def path_kernels(ola, f0_method, synthesis=True):
-    """The wrappers a batch step with ``f0_method`` must launch: the F0
-    stage's contour kernel, and with synthesis the scan kernel and the
+def path_kernels(ola, f0_method, synthesis=True, exact=False):
+    """The wrappers a step with ``f0_method`` must launch: the F0 stage's
+    contour kernel; Harvest's decimation and smoothing (the state scan
+    in float32, the zero-phase recurrence with ``exact``, float64 and the
+    reference RNG; Dio at its default speed 1 does not decimate); with
+    ``exact`` the RNG span; and with synthesis the scan kernel and the
     OLA kernel's ragged mode (streaming, checked in its phases, the
     general mode)."""
-    from world_tpu_torch.ops import contour, scan
+    from world_tpu_torch.ops import contour, iir, rng, scan
 
-    walk = {"dio": contour.dio_fix_walks,
-            "harvest": contour.harvest_fix_step3}[f0_method]
-    return [walk] + ([ola.ola_accumulate_ragged, scan.cumsum_rows]
-                     if synthesis else [])
+    kernels = [{"dio": contour.dio_fix_walks,
+                "harvest": contour.harvest_fix_step3}[f0_method]]
+    if f0_method == "harvest":
+        kernels.append(iir.iir_zero_phase if exact else iir.lti_state_scan)
+    if exact:
+        kernels.append(rng.randn_span)
+    return kernels + ([ola.ola_accumulate_ragged, scan.cumsum_rows]
+                      if synthesis else [])
 
 
 CONTOUR_CASES = ("main_22k/harvest_fix_step3", "main_48k/harvest_fix_step3",
                  "dio_22k/dio_fix_walks", "dio_48k/dio_fix_walks",
                  "dio_exact/dio_fix_walks", "longform_48k/harvest_fix_step3",
                  "cli_manip/harvest_fix_step3")
-# F0 method: (its contour stage, the stage's kernel, most torch ops).
-STAGE_OPS_LIMITS = {"dio": ("dio.fix", "dio_fix_walks", 50),
-                    "harvest": ("harvest.contour", "harvest_fix_step3", 350)}
+# (F0 method, float64 exact): [(stage, most torch ops it runs, a
+# kernel, its launches in the whole step)].  A float32 Harvest step runs
+# the state scan twice in decimation and twice in the smoothing; a
+# float64 one the zero-phase recurrence once in each.
+STAGE_OPS_LIMITS = {
+    ("dio", False): [("dio.fix", 50, "dio_fix_walks", 1)],
+    ("harvest", False): [("harvest.contour", 350, "harvest_fix_step3", 1),
+                         ("harvest.decimate", 50, "lti_state_scan", 4)],
+    ("harvest", True): [("harvest.contour", 400, "harvest_fix_step3", 1),
+                        ("harvest.decimate", 50, "iir_zero_phase", 2)]}
 
 
 def stage_ops_phase(torch, W, ola):
     """The top-level torch ops each stage of one batch step issues
     (main_*'s Harvest step, dio_*'s Dio step with codec 64, batch 16,
-    float32 fast mode), with the kernel counts set to 0 just before the
-    traced step and read just after: the contour stages at most
-    STAGE_OPS_LIMITS' ops and one launch of their kernel."""
+    float32 fast mode; and the Harvest step in float64 exact mode at
+    22.05 kHz), with the kernel counts set to 0 just before the traced
+    step and read just after: each stage of STAGE_OPS_LIMITS at most its
+    ops, and its kernel launched as often as the step runs it."""
     from world_tpu_torch.tools.profile_step import stage_ops
 
     res = {}
-    for tag, gold, method, codec_dims in (
-            ("main_22k", "goldens", "harvest", None),
-            ("main_48k", "goldens_fs48", "harvest", None),
-            ("dio_22k", "goldens", "dio", CODEC_DIMS),
-            ("dio_48k", "goldens_fs48", "dio", CODEC_DIMS)):
+    for tag, gold, method, codec_dims, exact in (
+            ("main_22k", "goldens", "harvest", None, False),
+            ("main_48k", "goldens_fs48", "harvest", None, False),
+            ("dio_22k", "goldens", "dio", CODEC_DIMS, False),
+            ("dio_48k", "goldens_fs48", "dio", CODEC_DIMS, False),
+            ("harvest_f64_exact_22k", "goldens", "harvest", None, True)):
         fs, xb = golden_batch(torch, gold)
-        step = W.make_batch_step(fs, xb.shape[1], rng_mode="fast",
+        if exact:
+            xb = xb.double()
+        step = W.make_batch_step(fs, xb.shape[1],
+                                 rng_mode="exact" if exact else "fast",
                                  f0_method=method, codec_dims=codec_dims,
                                  device="cuda")
         step(xb)                                     # warm-up
         torch.cuda.synchronize()
         zero_counts(ola)
         ops = stage_ops(step, xb)
-        res[tag] = {"f0_method": method, "stage_ops": ops,
+        res[tag] = {"f0_method": method, "exact": exact,
+                    "dtype": str(xb.dtype), "stage_ops": ops,
                     "launches": read_counts(ola)}
     emit("stage_ops", **res)
     for tag, r in res.items():
-        stage, kernel, most = STAGE_OPS_LIMITS[r["f0_method"]]
-        n = r["stage_ops"].get(stage)
-        check(n is not None and n <= most and r["launches"][kernel] == 1,
-              f"stage_ops {tag}: {stage} issued {n} ops (at most {most}) "
-              f"and {r['launches'][kernel]} {kernel} launches (1)")
+        for stage, most, kernel, times in STAGE_OPS_LIMITS[
+                r["f0_method"], r["exact"]]:
+            n = r["stage_ops"].get(stage)
+            k = r["launches"][kernel]
+            check(n is not None and n <= most and k == times,
+                  f"stage_ops {tag}: {stage} issued {n} ops (at most "
+                  f"{most}) and {k} {kernel} launches ({times})")
+
+
+# (phase, wrapper): the recorded calls iir_kernels measures, in order.
+IIR_CASES = (("main_22k", "lti_state_scan"), ("main_48k", "lti_state_scan"),
+             ("longform_48k", "lti_state_scan"),
+             ("exact_22k", "iir_zero_phase"), ("exact_22k", "randn_span"),
+             ("exact_48k", "iir_zero_phase"), ("exact_48k", "randn_span"),
+             ("stream_exact_22k", "randn_span"),
+             ("cli_manip", "iir_zero_phase"), ("cli_manip", "randn_span"))
+RANDN_CALLS = {"exact_22k": 4, "exact_48k": 4}   # else the first call
+
+
+def iir_picks(recorded_by_phase):
+    """{case: (wrapper, args, kwargs)} of IIR_CASES: per phase the first
+    call of each state size (lti_state_scan) or recurrence
+    (iir_zero_phase), and the first RANDN_CALLS calls of randn_span."""
+    picks = {}
+    for tag, name in IIR_CASES:
+        calls = recorded_by_phase.get(tag, {}).get(name, [])
+        if name == "randn_span":
+            keys = [str(i) for i in range(len(calls))][
+                :RANDN_CALLS.get(tag, 1)]
+            chosen = list(zip(keys, calls))
+        else:
+            chosen = {}
+            for args, kwargs in calls:
+                key = (f"S{args[1].shape[0]}" if name == "lti_state_scan"
+                       else args[1])
+                chosen.setdefault(key, (args, kwargs))
+            chosen = list(chosen.items())
+        for key, (args, kwargs) in chosen:
+            picks[f"{tag}/{name}/{key}"] = (name, args, kwargs)
+    return picks
+
+
+def same_call(torch, a, b):
+    """Two recorded argument lists of one wrapper, equal."""
+    def same(u, v):
+        if torch.is_tensor(u) and torch.is_tensor(v):
+            return (u.shape == v.shape and u.dtype == v.dtype
+                    and bool(torch.equal(u, v)))
+        return not torch.is_tensor(u) and not torch.is_tensor(v) and u == v
+    return len(a) == len(b) and all(same(u, v) for u, v in zip(a, b))
+
+
+def iir_kernels_phase(torch, card, replays, launches):
+    """The IIR kernels and the RNG span kernel on the calls iir_picks
+    takes from the batch runs' recordings and IIR_INPUTS, each against
+    its plain version on the same tensors (iir_bench.measure), beside
+    ``launches``, each kernel's launches on the paths (at least one).  A
+    call on the same arguments as one measured before (cli_manip's
+    decimation is exact_22k's) is reported as that one, so the plain
+    float64 decimation, a loop of tens of thousands of launches, runs
+    once for each input."""
+    from world_tpu_torch.tools import iir_bench
+
+    recorded = dict(IIR_INPUTS)
+    for tag in ("main_22k", "main_48k"):
+        recorded[tag] = {"lti_state_scan": replays[tag]["lti_state_scan"]}
+    picks = iir_picks(recorded)
+    cases, done = {}, []
+    for case, (name, args, kwargs) in picks.items():
+        twin = next((c for c, n, a in done if n == name
+                     and same_call(torch, a, args)), None)
+        if twin is not None:
+            cases[case] = dict(cases[twin], same_input_as=twin)
+            continue
+        cases[case] = iir_bench.measure(torch, name, args, kwargs)
+        done.append((case, name, args))
+    emit("iir_kernels", card=card, launches=launches, cases=cases)
+    for name, n in launches.items():
+        check(n > 0, f"iir_kernels: {name} never launched on the paths")
+    found = {tuple(c.split("/")[:2]) for c in cases}
+    check(found == set(IIR_CASES),
+          f"iir_kernels: recorded {sorted(found)}, not {sorted(IIR_CASES)}")
+    check_cases(cases.values(), "iir_kernels")
+    return cases
 
 
 def check_cases(cases, what):
@@ -1745,7 +1963,7 @@ def main():
     sys.path.insert(0, str(ROOT))
     import world_tpu_torch as W
     from world_tpu_torch.ops import _cuda, ola, scan
-    from world_tpu_torch.tools import contour_bench
+    from world_tpu_torch.tools import contour_bench, iir_bench
     from world_tpu_torch.tools import ola_bench as bench
     from world_tpu_torch.tools import scan_bench
 
@@ -1758,11 +1976,12 @@ def main():
 
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _cuda.CSRC.glob("*.cu"))
-    # The kernels and the dependent-add and -divide microbenchmarks, built
-    # together.
+    # The kernels and the dependent-add, -divide and IIR-chain
+    # microbenchmarks, built together.
     builds = {s: functools.partial(_cuda.build, s) for s in sources}
     builds["dadd_chain"] = scan_bench.build_dadd
     builds["div_chain"] = contour_bench.build_div
+    builds["iir_chain"] = iir_bench.build_chain
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(f) for k, f in builds.items()}
         logs = {k: f.result() for k, f in futures.items()}
@@ -1786,13 +2005,18 @@ def main():
     dio_vs_cpu(torch, W, get, scalars)
     dio_exact(torch, W, get, scalars)
     codec_exact(torch, W, get, scalars)
+    # The default entry points, float64 with the reference RNG, counts
+    # set to 0 before the timed call and read after it.
+    exact_runs = {tag: exact_path(torch, W, ola, tag, gold, vuv, sp_gate)
+                  for tag, gold, vuv, sp_gate in EXACT_RATES}
 
     # Streaming and long-form, each with the kernel counts set to 0 just
     # before it and read just after (general-mode launches per phase).
-    general = {
-        "stream_exact_22k": stream_exact(W, ola, "cuda"),
+    with iir_bench.recording(IIR_INPUTS.setdefault("stream_exact_22k", {})):
+        general = {"stream_exact_22k": stream_exact(W, ola, "cuda")}
+    general.update({
         "stream_span_vs_rows": stream_span_vs_rows(W, ola, "cuda"),
-        "stream_vs_cpu_48k": stream_vs_cpu(W, ola, "cuda")}
+        "stream_vs_cpu_48k": stream_vs_cpu(W, ola, "cuda")})
     general["stream_f32"], stream_rec = stream_f32(W, ola, "cuda")
     general["stream_frame_feed"] = stream_frame_feed(W, ola, "cuda")
     longform_check(W, "cuda")
@@ -1886,6 +2110,18 @@ def main():
     check(sorted(walks) == sorted(CONTOUR_CASES),
           f"contour_kernels: recorded {sorted(walks)}")
     check_cases(walks.values(), "contour_kernels")
+    def path_launches(name):
+        return (sum(r["launches"][name] for r in runs.values())
+                + sum(c[name] for c in cli_runs.values())
+                + sum(m[name] for m in mesh_runs.values())
+                + sum(e[name] for e in exact_runs.values()))
+
+    # The IIR kernels and the RNG span kernel on the arguments their
+    # wrappers received in the Harvest batch runs, exact_path,
+    # stream_exact_22k, longform_48k's first batch and cli_manip.
+    iirs = iir_kernels_phase(torch, card, replays, {
+        name: path_launches(name)
+        for name in ("iir_zero_phase", "lti_state_scan", "randn_span")})
     stage_ops_phase(torch, W, ola)
 
     def line(name, c, launches, source="world_tpu_torch/csrc/ola.cu",
@@ -1899,11 +2135,6 @@ def main():
             "device_ms": c["device_ms"], "host_us": c["host_us"],
             "library_device_ms": c["library_device_ms"],
             "shape": c["shape"], "on_main_path": True}
-
-    def path_launches(name):
-        return (sum(r["launches"][name] for r in runs.values())
-                + sum(c[name] for c in cli_runs.values())
-                + sum(m[name] for m in mesh_runs.values()))
 
     general_total = sum(general.values()) + sum(
         c["ola_accumulate"] for c in cli_runs.values())
@@ -1932,7 +2163,27 @@ def main():
                   source="world_tpu_torch/csrc/harvest_contour.cu",
                   replaces="world_tpu/models/harvest_contour.py:114-306"),
              chain_bound_ms=walks["main_22k/harvest_fix_step3"][
-                 "chain_bound_ms"])]}),
+                 "chain_bound_ms"]),
+        # No Pallas kernels: the JAX package's device loops (lax.scan,
+        # lax.fori_loop) of the float64 recurrences, the block-LTI state
+        # and the reference RNG.
+        dict(line("iir_zero_phase", iirs["exact_22k/iir_zero_phase/decimate"],
+                  path_launches("iir_zero_phase"),
+                  source="world_tpu_torch/csrc/iir.cu",
+                  replaces="world_tpu/ops/matlab.py:204-227"),
+             also_replaces="world_tpu/models/harvest_contour.py:353-366",
+             chain_bound_ms=iirs["exact_22k/iir_zero_phase/decimate"][
+                 "chain_bound_ms"]),
+        dict(line("lti_state_scan", iirs["main_22k/lti_state_scan/S3"],
+                  path_launches("lti_state_scan"),
+                  source="world_tpu_torch/csrc/iir.cu",
+                  replaces="world_tpu/ops/matlab.py:167-187"),
+             chain_bound_ms=iirs["main_22k/lti_state_scan/S3"][
+                 "chain_bound_ms"]),
+        line("randn_span", iirs["exact_22k/randn_span/0"],
+             path_launches("randn_span"),
+             source="world_tpu_torch/csrc/xorshift.cu",
+             replaces="world_tpu/ops/rng.py:82-102")]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
-modes, at every tile, the scan kernel and the contour-walk kernels
-against their plain versions (torch.equal), IEEE
+modes, at every tile, the scan kernel, the contour-walk kernels, the
+IIR kernels (iir_zero_phase, lti_state_scan) and the RNG span kernel
+(randn_span) against their plain versions (torch.equal), IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
@@ -25,7 +26,8 @@ import world_tpu_torch as W  # noqa: E402
 from world_tpu_torch.device import div  # noqa: E402
 from world_tpu_torch.models import dio as port_dio  # noqa: E402
 from world_tpu_torch.models import harvest_contour as port_hc  # noqa: E402
-from world_tpu_torch.ops import contour, ola, scan  # noqa: E402
+from world_tpu_torch.ops import (  # noqa: E402
+    _cuda, contour, iir, matlab, ola, rng, scan)
 from world_tpu_torch.ops.ola import ola_accumulate, ola_plain  # noqa: E402
 from world_tpu_torch.parallel import pipeline  # noqa: E402
 from world_tpu_torch.tools.ola_bench import TABLE  # noqa: E402
@@ -452,6 +454,173 @@ def test_contour_plain_versions_never_run_on_card(cuda, monkeypatch):
         step = pipeline.make_batch_step(22050, len(x), f0_method=method,
                                         with_synthesis=False, device=cuda)
         f0 = step(np.stack([x, 0.7 * x]))[0]
+        assert torch.isfinite(f0).all() and (f0 > 0).any()
+
+
+def same_with_nan(got, want):
+    """NaN at the same places, torch.equal at the others."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def check_iir(name, *args):
+    """The wrapper ``name`` (ops/iir.py) launches its kernel once and
+    equals its plain version on the CPU copy of its card arguments (the
+    plain version's IEEE ops give the same bits on either device)."""
+    kernel = getattr(iir, name)
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1
+    want = getattr(iir, name + "_plain")(
+        *[a.cpu() if torch.is_tensor(a) else a for a in args])
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert same_with_nan(got.cpu(), want), (
+        name, (got.cpu() != want).reshape(-1, want.shape[-1]).any(1))
+
+
+@pytest.mark.parametrize("recurrence", ["decimate", "smooth"])
+def test_iir_zero_phase_kernel_matches_plain(cuda, recurrence):
+    """iir_zero_phase == its plain version at 1, 19, 127, 128, 129 and
+    2,000 samples in 1, 3 and 16 lanes (decimate at every ratio in
+    turn), and on rows holding a NaN, an inf and a -inf."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    for i, n in enumerate((1, 19, 127, 128, 129, 2000)):
+        for lanes in (1, 3, 16):
+            x = torch.randn((lanes, n), generator=gen, dtype=torch.float64,
+                            device=cuda) * 100.0
+            if lanes == 16:
+                x[3, n // 2] = float("nan")
+                x[5, n // 3] = float("inf")
+                x[7, n - 1] = -float("inf")
+            r = 2 + (i + lanes) % 11 if recurrence == "decimate" else None
+            check_iir("iir_zero_phase", x, recurrence, r)
+
+
+@pytest.mark.parametrize("r", range(2, 13))
+def test_iir_decimate_kernel_at_golden_sizes(cuda, r):
+    """iir_zero_phase(decimate) == its plain version on the padded golden
+    utterance at 22.05 kHz (17,518 samples, one row, as analyze() has
+    it) and, at Harvest's and Dio's 48 kHz ratios (6 and 12), on 16
+    rows of the 48 kHz one (33,618 samples, as the batch step has
+    it)."""
+    def padded(gold, rows):
+        x = np.fromfile(os.path.join(os.path.dirname(GOLDENS), gold,
+                                     "x.f64"))
+        t = np.concatenate([2 * x[0] - x[9:0:-1], x,
+                            2 * x[-1] - x[-2:-11:-1]])
+        gains = np.linspace(0.5, 1.5, rows) if rows > 1 else np.ones(1)
+        return torch.as_tensor(t[None] * gains[:, None], device=cuda)
+    check_iir("iir_zero_phase", padded("goldens", 1), "decimate", r)
+    if r in (6, 12):
+        check_iir("iir_zero_phase", padded("goldens_fs48", 16), "decimate",
+                  r)
+
+
+def test_iir_smooth_kernel_at_golden_size(cuda):
+    """iir_zero_phase(smooth) == its plain version on the lanes the
+    float64 smoothing gives it for the golden Harvest track at Harvest's
+    1 ms contour rate (794 frames, each golden frame held 5 times) at the
+    JAX package's capacity (101 sections x 1,394 frames), and for 16
+    such rows."""
+    seen = []
+    real = port_hc.iir_zero_phase
+
+    def record(x, recurrence, r=None):
+        seen.append(x)
+        return real(x, recurrence, r)
+    port_hc.iir_zero_phase = record
+    try:
+        f0 = torch.as_tensor(np.repeat(golden("harvest_f0"), 5)[:794],
+                             device=cuda)
+        port_hc._smooth_contour(f0[None], len(f0) // 8 + 2)
+        port_hc._smooth_contour(
+            f0[None] * torch.linspace(0.5, 1.5, 16, dtype=torch.float64,
+                                      device=cuda)[:, None],
+            len(f0) // 8 + 2)
+    finally:
+        port_hc.iir_zero_phase = real
+    assert [tuple(x.shape) for x in seen] == [(1, 101, 1394),
+                                              (16, 101, 1394)]
+    for x in seen:
+        check_iir("iir_zero_phase", x, "smooth")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lti_state_scan_kernel_matches_plain(cuda, dtype):
+    """lti_state_scan == its plain version for decimate's 3-state and
+    the smoothing's 4-state tables at the blocks a pass has at 22.05 kHz
+    (137), 48 kHz (263) and in a long-form chunk (2,344), in 1 and 16
+    lanes (1,616 for the smoothing's sections), with 1 and 129 blocks
+    too."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    for S, AL in ((3, matlab._decimate_block_tables(2, 128)[3]),
+                  (4, port_hc._biquad_tables()[3])):
+        al = torch.as_tensor(AL, dtype=dt, device=cuda)
+        for lanes, nblk in ((1, 1), (16, 129), (1, 137), (16, 137),
+                            (16, 263), (16, 2344), (1616, 14)):
+            p = torch.randn((lanes, nblk, S), generator=gen, dtype=dt,
+                            device=cuda)
+            check_iir("lti_state_scan", p, al)
+
+
+def test_randn_span_kernel_matches_plain(cuda):
+    """randn_span == its plain version on 1 and 1,616 lanes from 0, 63,
+    64, 2^20 + 5, and up to 2^33 - 70 (every jump bit up to 33), and
+    randn_blocks_at on ~1,500-draw blocks of 794 frames, as CheapTrick
+    draws at 22.05 kHz."""
+    for base in (0, 63, 64, 2 ** 20 + 5, 2 ** 33 - 70 - 1615 * 64):
+        for lanes in (1, 1616):
+            starts = base + torch.arange(lanes, device=cuda) * rng._LANE
+            top = base + (lanes - 1) * rng._LANE
+            before = rng.randn_span.launches
+            got = rng.randn_span(starts, top)
+            assert rng.randn_span.launches == before + 1
+            want = rng.randn_span_plain(starts.cpu(), top)
+            assert torch.equal(got.cpu(), want), (base, lanes)
+    f0 = golden("harvest_f0")
+    offsets = np.cumsum(np.full(len(f0), 1500)) - 1500
+    got = rng.randn_blocks_at(torch.as_tensor(offsets, device=cuda), 1537)
+    want = rng.randn_blocks_at(torch.as_tensor(offsets), 1537)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_iir_kernel_launch_failure_raises(cuda):
+    """A launch the kernel refuses (an unknown recurrence kind) raises."""
+    import ctypes
+    entry = _cuda.entry("iir", "iir_zero_phase_launch",
+                       (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_longlong)
+                       + (ctypes.c_double,) * 5 + (ctypes.c_void_p,))
+    x = torch.zeros((1, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(RuntimeError):
+        _cuda.launch("iir_zero_phase", entry, x.device, 7, x.data_ptr(),
+                    x.data_ptr(), 1, 8, *[0.0] * 5)
+
+
+def test_iir_and_rng_plain_versions_never_run_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernels: with the plain recurrences, the
+    plain state loop and the plain RNG made to raise, the default float64
+    exact analyze() + synthesize() and the float32 Harvest and Dio steps
+    still run on the card."""
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached on the card")
+    for module, name in ((iir, "iir_zero_phase_plain"),
+                         (iir, "lti_state_scan_plain"),
+                         (rng, "randn_span_plain"), (rng, "randn_block"),
+                         (rng, "states_at_draws")):
+        monkeypatch.setattr(module, name, boom)
+    x = golden("x")
+    p = W.analyze(x, 22050, device=cuda)
+    y = W.synthesize(p, device=cuda)
+    assert torch.isfinite(y).all() and (p.f0 > 0).any()
+    for method in ("dio", "harvest"):
+        step = pipeline.make_batch_step(22050, len(x), f0_method=method,
+                                        with_synthesis=False, device=cuda)
+        f0 = step(np.stack([x, 0.7 * x]).astype(np.float32))[0]
         assert torch.isfinite(f0).all() and (f0 > 0).any()
 
 

@@ -16,8 +16,9 @@ vectorized over utterances and sections:
   FixStep3 in one launch on the card (ops/contour.py).
 - FixStep4 fills short gaps frame-parallel from prev/next-section scans.
 - SmoothF0Contour runs the zero-phase biquad per section with 300-frame
-  edge-hold padding: the per-sample recurrence in float64, the block-LTI
-  form in float32.
+  edge-hold padding: the per-sample recurrence in float64 (the plain
+  version of ops/iir.py's iir_zero_phase, one launch on the card), the
+  block-LTI form in float32.
 """
 
 import functools
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.contour import harvest_fix_step3
+from ..ops.iir import iir_zero_phase
 from ..ops.matlab import lti_block_filter, lti_block_tables, take_last
 
 BIG = 2 ** 30
@@ -307,7 +309,10 @@ def _smooth_contour(f0, cap=None):
     x = torch.where(t < st_c, v_st,
                     torch.where(t > ed_c, v_ed, contour[:, None, :]))
     x = torch.where(valid, x, torch.zeros_like(x))
-    y2 = _biquad(_biquad(x).flip(-1)).flip(-1)
+    if x.dtype == torch.float64:
+        y2 = iir_zero_phase(x, "smooth")        # one launch on the card
+    else:
+        y2 = _biquad(_biquad(x).flip(-1)).flip(-1)
     in_sec = (t >= st_c) & (t <= ed_c) & valid
     out = torch.where(in_sec, y2, torch.zeros_like(y2)).sum(1)
     return out[:, LAG:LAG + n_frames]

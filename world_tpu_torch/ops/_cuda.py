@@ -22,11 +22,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of one source on top of NVCC_FLAGS.  The contour walks compare
-# values that must round as the plain version's separate tensor ops do,
-# so nvcc may not contract a multiply and an add into an FMA there.
+# Flags of one source on top of NVCC_FLAGS.  The contour walks and the
+# IIR recurrences compute values that must round as the plain version's
+# separate tensor ops do, so nvcc may not contract a multiply and an add
+# into an FMA there.
 SOURCE_FLAGS = {"dio_fix": ("-fmad=false",),
-                "harvest_contour": ("-fmad=false",)}
+                "harvest_contour": ("-fmad=false",),
+                "iir": ("-fmad=false",)}
 
 
 def nvcc():
@@ -80,3 +82,28 @@ def load(name):
     """ctypes handle of the built csrc/<name>.cu library."""
     path, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def entry(source, symbol, argtypes):
+    """The C entry ``symbol`` of csrc/<source>.cu's library, its argument
+    types set once (it returns a cudaError_t)."""
+    fn = getattr(load(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(what, fn, device, *args):
+    """Call the C entry ``fn`` with ``args`` and the current stream of the
+    CUDA ``device``; raise on a failed launch."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")

@@ -32,7 +32,6 @@ decides a comparison to within its rounding.
 """
 
 import ctypes
-import functools
 
 import torch
 
@@ -40,28 +39,6 @@ from . import _cuda
 
 _DTYPES = (torch.float32, torch.float64)
 WALK_STEPS = 101      # ExtendF0's steps: a 100-frame threshold, inclusive
-
-
-@functools.lru_cache(maxsize=None)
-def _entry(source, symbol, argtypes):
-    """A kernel's C entry, its argument types set once."""
-    fn = getattr(_cuda.load(source), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(what, entry, device, *args):
-    """Call ``entry`` with ``args`` and the current stream of ``device``;
-    raise on a failed launch."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index == torch.cuda.current_device():
-        rc = entry(*args, stream)
-    else:
-        with torch.cuda.device(device):
-            rc = entry(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 def _on_card(step2, *rest):
@@ -107,13 +84,13 @@ def dio_fix_walks(step2, cands, allowed_range):
     out = torch.empty_like(step2)
     if step2.numel() == 0:
         return out
-    entry = _entry("dio_fix", "dio_fix_launch",
-                   (ctypes.c_int,) + (ctypes.c_void_p,) * 3
-                   + (ctypes.c_int,) * 3 + (ctypes.c_double,
-                                            ctypes.c_void_p))
-    _launch("dio_fix", entry, step2.device, step2.element_size(),
-            step2.data_ptr(), cands.data_ptr(), out.data_ptr(), B,
-            cands.shape[1], F, float(allowed_range))
+    entry = _cuda.entry("dio_fix", "dio_fix_launch",
+                        (ctypes.c_int,) + (ctypes.c_void_p,) * 3
+                        + (ctypes.c_int,) * 3 + (ctypes.c_double,
+                                                 ctypes.c_void_p))
+    _cuda.launch("dio_fix", entry, step2.device, step2.element_size(),
+                 step2.data_ptr(), cands.data_ptr(), out.data_ptr(), B,
+                 cands.shape[1], F, float(allowed_range))
     dio_fix_walks.launches += 1
     return out
 
@@ -172,14 +149,15 @@ def harvest_fix_step3(step2, cands, scores, allowed_range=0.18, cap=None):
                            device=step2.device)
     fscratch = torch.empty((B, n_float), dtype=step2.dtype,
                            device=step2.device)
-    entry = _entry("harvest_contour", "harvest_fix_step3_launch",
-                   (ctypes.c_int,) + (ctypes.c_void_p,) * 6
-                   + (ctypes.c_int,) * 4 + (ctypes.c_double,
-                                            ctypes.c_void_p))
-    _launch("harvest_contour", entry, step2.device, step2.element_size(),
-            step2.data_ptr(), cands.data_ptr(), scores.data_ptr(),
-            out.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(), B, F,
-            cands.shape[2], kmax, float(allowed_range))
+    entry = _cuda.entry("harvest_contour", "harvest_fix_step3_launch",
+                        (ctypes.c_int,) + (ctypes.c_void_p,) * 6
+                        + (ctypes.c_int,) * 4 + (ctypes.c_double,
+                                                 ctypes.c_void_p))
+    _cuda.launch("harvest_contour", entry, step2.device,
+                 step2.element_size(), step2.data_ptr(), cands.data_ptr(),
+                 scores.data_ptr(), out.data_ptr(), iscratch.data_ptr(),
+                 fscratch.data_ptr(), B, F, cands.shape[2], kmax,
+                 float(allowed_range))
     harvest_fix_step3.launches += 1
     return out
 

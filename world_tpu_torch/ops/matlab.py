@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..device import div
+from .iir import iir_zero_phase, lti_state_scan
 
 
 def matlab_round(x):
@@ -151,28 +152,42 @@ def lti_block_tables(M, e, c, d, block):
     return K, R, P, powers[block]
 
 
+# lti_block_filter's tables as tensors: (id(tables), dtype, device) ->
+# (tables, (K^T, R^T, P^T, AL)); the tables object is kept so that its id
+# is not reused.
+_TABLES_ON = {}
+
+
+def _tables_on(tables, dtype, device):
+    """``tables`` as tensors of ``dtype`` on ``device``, uploaded once:
+    the transposes the products take (views, as ``.T`` at the call would
+    give) and AL."""
+    key = (id(tables), dtype, device)
+    hit = _TABLES_ON.get(key)
+    if hit is None or hit[0] is not tables:
+        K, R, P, AL = (torch.as_tensor(t, dtype=dtype, device=device)
+                       for t in tables)
+        hit = _TABLES_ON[key] = (tables, (K.T, R.T, P.T, AL))
+    return hit[1]
+
+
 def lti_block_filter(x, tables):
     """Apply the block-form LTI filter along the LAST axis of ``x`` (any
     leading lane dims; zero initial state): three dense products plus a
-    per-block state recurrence of n/block steps.  TF32 is switched off
+    per-block state recurrence of n/block steps (ops/iir.py:
+    lti_state_scan, one kernel launch on the card).  TF32 is switched off
     so the float32 products stay float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    K, R, P, AL = (torch.as_tensor(t, dtype=x.dtype, device=x.device)
-                   for t in tables)
+    KT, RT, PT, AL = _tables_on(tables, x.dtype, x.device)
     lead = x.shape[:-1]
     n = x.shape[-1]
-    block = K.shape[0]
+    block = KT.shape[0]
     nblk = -(-n // block)
     xb = torch.nn.functional.pad(x, (0, nblk * block - n)).reshape(
         lead + (nblk, block))
-    y0 = xb @ K.T                           # (..., nblk, block)
-    p = xb @ P.T                            # (..., nblk, state)
-    s = torch.zeros(lead + (AL.shape[0],), dtype=x.dtype, device=x.device)
-    states = []
-    for j in range(nblk):
-        states.append(s)                    # pre-block state
-        s = s @ AL.T + p[..., j, :]
-    y = y0 + torch.stack(states, -2) @ R.T
+    y0 = xb @ KT                            # (..., nblk, block)
+    p = xb @ PT                             # (..., nblk, state)
+    y = y0 + lti_state_scan(p, AL) @ RT
     return y.reshape(lead + (nblk * block,))[..., :n]
 
 
@@ -195,10 +210,10 @@ def _filter_for_decimate(x, r):
     (src/matlabfunctions.cpp:27-125), along the last axis.
 
     float64: the per-sample recurrence in the reference's order (the
-    plain version and the golden path).  float32: the block-LTI form —
-    a ~18k-step Python loop would dominate the step on the card; the
-    result differs from the recurrence only in rounding (~1e-6
-    relative, far inside the 0.1-cent F0 gate)."""
+    golden path, and the plain version of ops/iir.py's iir_zero_phase,
+    which decimate calls).  float32: the block-LTI form, which differs
+    from the recurrence only in rounding (~1e-6 relative, far inside the
+    0.1-cent F0 gate)."""
     if x.dtype != torch.float64:
         return lti_block_filter(x, _decimate_block_tables(r, 128))
     a0, a1, a2, b0, b1 = (float(v) for v in _DECIMATE_COEFFS[r])
@@ -222,8 +237,11 @@ def decimate(x, r):
     head = 2.0 * x[..., :1] - x[..., 1:k + 1].flip(-1)
     tail = 2.0 * x[..., n - 1:n] - x[..., n - 1 - k:n - 1].flip(-1)
     t = torch.cat([head, x, tail], dim=-1)
-    t = _filter_for_decimate(t, r).flip(-1)
-    t = _filter_for_decimate(t, r).flip(-1)
+    if t.dtype == torch.float64:
+        t = iir_zero_phase(t, "decimate", r)    # one launch on the card
+    else:
+        t = _filter_for_decimate(t, r).flip(-1)
+        t = _filter_for_decimate(t, r).flip(-1)
     nout = (n - 1) // r + 1
     nbeg = r - r * nout + n
     # y[c] = t[nbeg + c*r + kNFact - 1]  (src/matlabfunctions.cpp:195-200)

@@ -7,24 +7,32 @@ sizes (one block per frame / per pulse).  The state update is linear
 over GF(2), so jumping k draws ahead is a 128x128 bit-matrix power:
 ``states_at_draws`` lands any number of stream positions in parallel.
 
-On the GPU the jump is a float32 matmul of 0/1 values (every sum is at
-most 128, so exact) with TF32 off, then ``% 2``.  xorshift words are
-carried in int64 masked to 32 bits (torch.uint32 has few operators).
+On the card a span of the stream is one launch of csrc/xorshift.cu
+(``randn_span``: each lane's jump and its draws); on the CPU its plain
+version runs the jump as a float32 matmul of 0/1 values (every sum is at
+most 128, so exact), then ``% 2``, and the draws as a loop, the
+xorshift words carried in int64 masked to 32 bits (torch.uint32 has few
+operators).
 
 Fast mode draws normals from an explicit ``torch.Generator``; a torch
 generator cannot reproduce jax.random sample for sample, so fast-mode
 results are held to envelope gates, not to the JAX output.
 """
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from . import _cuda
+
 SEED = (123456789, 362436069, 521288629, 88675123)
 _MASK = 0xFFFFFFFF
 # Draws per parallel lane when a whole span of the stream is generated.
 _LANE = 64
+# Jump matrices M^(2^b), b < _MAX_LOG2: stream positions below 2^34.
+_MAX_LOG2 = 34
 
 
 def _state_step_bits(bits):
@@ -50,7 +58,7 @@ def _state_step_bits(bits):
 
 
 @functools.lru_cache(maxsize=1)
-def _jump_matrices(max_log2=34):
+def _jump_matrices(max_log2=_MAX_LOG2):
     """M_draw^(2^b) for b in 0..max_log2-1, where M_draw = 12 state steps.
     (max_log2, 128, 128) uint8; next_bits = (bits @ M.T) & 1."""
     eye = np.eye(128, dtype=np.uint8)
@@ -125,14 +133,67 @@ def randn_block(state, n):
     return torch.stack(draws, -1)
 
 
+@functools.lru_cache(maxsize=None)
+def _jump_rows(device):
+    """The jump matrices' rows packed little-endian into 4 words of 32
+    bits, (_MAX_LOG2, 128, 4) int32 on ``device`` (csrc/xorshift.cu's
+    layout), uploaded once per device."""
+    words = np.packbits(_jump_matrices(), axis=-1, bitorder="little")
+    return torch.as_tensor(words.view("<u4").view(np.int32).copy(),
+                           device=device)
+
+
+def randn_span_plain(starts, max_start):
+    """The plain version: the GF(2) jumps, then the draws' loop."""
+    return randn_block(states_at_draws(starts, max_start), _LANE)
+
+
+def randn_span(starts, max_start):
+    """The _LANE draws from each stream position of ``starts`` (int64
+    (lanes,)): float64 (lanes, _LANE).  ``max_start`` is the largest
+    start, known on the host."""
+    if starts.dim() != 1 or starts.dtype != torch.int64:
+        raise ValueError(f"starts must be int64 (lanes,), got "
+                         f"{starts.dtype} {tuple(starts.shape)}")
+    n_bits = max(1, int(max_start).bit_length())
+    if n_bits > _MAX_LOG2:
+        raise ValueError(f"stream position {max_start} is past "
+                         f"2^{_MAX_LOG2}")
+    if starts.device.type == "cpu":
+        return randn_span_plain(starts, max_start)
+    if starts.device.type != "cuda":
+        raise ValueError(f"unsupported device {starts.device}")
+    starts = starts.contiguous()
+    out = torch.empty((starts.shape[0], _LANE), dtype=torch.float64,
+                      device=starts.device)
+    if starts.numel() == 0:
+        return out
+    entry = _cuda.entry("xorshift", "randn_span_launch",
+                        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
+                        + (ctypes.c_uint32,) * 4
+                        + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
+    _cuda.launch("randn_span", entry, starts.device, starts.data_ptr(),
+                 _jump_rows(starts.device).data_ptr(), n_bits, *SEED,
+                 out.data_ptr(), starts.shape[0])
+    _RANDN_SPAN.launches += 1
+    return out
+
+
+randn_span.launches = 0         # kernel launches (CUDA path only)
+# The wrapper itself, whose count a launch raises: randn_blocks_at calls
+# the module's name, which a recorder of the calls may stand in for.
+_RANDN_SPAN = randn_span
+
+
 def randn_blocks_at(offsets, n, bounds=None):
     """For each stream position in ``offsets`` (int (...)), the n draws
     starting there: float64 (..., n).
 
     The span [min, max + n) of the stream is generated once, in lanes of
-    _LANE draws that each start from a GF(2) jump, and every block is a
-    window of that span.  ``bounds`` = (min, max) of ``offsets``, when the
-    caller has them on the host, spares reading them from the device."""
+    _LANE draws that each start from a GF(2) jump (``randn_span``, one
+    launch on the card), and every block is a window of that span.
+    ``bounds`` = (min, max) of ``offsets``, when the caller has them on
+    the host, spares reading them from the device."""
     dev = offsets.device
     flat = offsets.reshape(-1).to(torch.int64)
     lo, hi = bounds if bounds is not None else (int(flat.min()),
@@ -140,8 +201,7 @@ def randn_blocks_at(offsets, n, bounds=None):
     total = hi + n - lo
     n_lanes = -(-total // _LANE)
     starts = lo + torch.arange(n_lanes, device=dev) * _LANE
-    seq = randn_block(states_at_draws(starts, lo + (n_lanes - 1) * _LANE),
-                      _LANE).reshape(-1)
+    seq = randn_span(starts, lo + (n_lanes - 1) * _LANE).reshape(-1)
     idx = (flat - lo).unsqueeze(-1) + torch.arange(n, device=dev)
     return seq[idx].reshape(offsets.shape + (n,))
 

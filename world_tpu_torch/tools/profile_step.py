@@ -2,14 +2,18 @@
 
     python -m world_tpu_torch.tools.profile_step [--fs 22050|48000]
         [--batch 16] [--f0-method dio|harvest] [--codec-dims N]
-        [--out profile_22050.json]
+        [--dtype float32|float64] [--rng-mode fast|exact|none]
+        [--reps 7] [--out profile_22050.json]
     python world_tpu_torch/tools/profile_step.py --root DIR [...]
 
-Drives make_batch_step(rng_mode="fast") with the given F0 method (Dio,
-the step's default, or Harvest) and optional on-device codec on rows of
-the golden utterance in float32 and reports, after two warm-up steps:
-the wall ms of REPS synchronized steps and per-stage ms (synchronized
-stage clock, REPS further steps; medians), and for one more step
+Drives make_batch_step with the given F0 method (Dio, the step's
+default, or Harvest), RNG mode (fast by default; exact is the reference
+stream, as analyze() and synthesize() default to) and optional on-device
+codec on rows of the golden utterance in float32 (the production batch
+step) or float64 (the exact path's type) and reports, after two warm-up
+steps: the wall ms of ``--reps`` synchronized steps and per-stage ms
+(synchronized stage clock, ``--reps`` further steps; medians), and for
+one more step
 from torch.profiler the device-busy ms (sum of kernel and copy times on
 the card), the device idle share, the number of kernels launched and the
 kernels that take most device time; and, from a third step traced on the
@@ -34,7 +38,6 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 GOLDENS = {22050: "goldens", 48000: "goldens_fs48"}
-REPS = 7
 
 
 def stage_ops(step, x):
@@ -78,6 +81,11 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--f0-method", default="dio", choices=("dio", "harvest"))
     ap.add_argument("--codec-dims", type=int, default=None)
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
+    ap.add_argument("--rng-mode", default="fast",
+                    choices=("fast", "exact", "none"))
+    ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--root", default=None,
                     help="checkout to import world_tpu_torch from")
     ap.add_argument("--out", default=None)
@@ -98,23 +106,23 @@ def main(argv=None):
     from world_tpu_torch.parallel.pipeline import make_batch_step
 
     x = np.fromfile(REPO / "tests" / GOLDENS[args.fs] / "x.f64").astype(
-        np.float32)
-    gains = np.linspace(0.5, 1.5, args.batch).astype(np.float32)
+        args.dtype)
+    gains = np.linspace(0.5, 1.5, args.batch).astype(args.dtype)
     xb = torch.as_tensor(x[None] * gains[:, None], device="cuda")
-    step = make_batch_step(args.fs, len(x), rng_mode="fast",
+    step = make_batch_step(args.fs, len(x), rng_mode=args.rng_mode,
                            f0_method=args.f0_method,
                            codec_dims=args.codec_dims, device="cuda")
     for _ in range(2):
         step(xb)
     torch.cuda.synchronize()
     step_ms = []
-    for _ in range(REPS):
+    for _ in range(args.reps):
         t0 = time.perf_counter()
         step(xb)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     stage_runs = []
-    for _ in range(REPS):
+    for _ in range(args.reps):
         stage_runs.append({})
         step(xb, timings=stage_runs[-1])
     stages = {k: float(np.median([r[k] for r in stage_runs]))
@@ -141,7 +149,8 @@ def main(argv=None):
     result = {
         "card": card, "root": str(root), "fs": args.fs,
         "batch": args.batch, "f0_method": args.f0_method,
-        "codec_dims": args.codec_dims,
+        "codec_dims": args.codec_dims, "dtype": args.dtype,
+        "rng_mode": args.rng_mode,
         "audio_s": args.batch * len(x) / args.fs,
         "step_ms_median": float(np.median(step_ms)), "step_ms": step_ms,
         "stage_ms": stages, "profiled_wall_ms": wall_ms,
