@@ -6,8 +6,9 @@
 Phases, one JSON line each, in this order:
   device    torch version, card name, nvidia-smi name and power limit
   build     nvcc builds of every csrc/*.cu kernel and of the dependent-add,
-            dependent-divide and IIR-chain microbenchmarks, started
-            together
+            dependent-divide and IIR/xorshift-chain microbenchmarks,
+            started together; each kernel's -Xptxas -v registers,
+            shared memory and spills
   window_starts  fs-derived window positions on the card == on the CPU
   main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
             in float32 fast mode, gated against the C++ goldens;
@@ -142,9 +143,10 @@ Phases, one JSON line each, in this order:
             calls a rate, stream_exact_22k and cli_manip; each against
             its plain version (NaN at the same places, torch.equal
             elsewhere), with its times, the plain version's, the bytes or
-            operations bound and, for the recurrences, the chain bound
-            (dependent steps x the latency of one,
-            world_tpu_torch/tools/iir_chain.cu)
+            operations bound, the chain bound (dependent steps x the
+            latency of one, world_tpu_torch/tools/iir_chain.cu: the
+            recurrences' steps, and for randn_span the 12 xorshift steps
+            of one draw) and the kernel's share of it
   stage_ops the top-level torch ops each stage of one batch step issues
             (world_tpu_torch/tools/profile_step.py: stage_ops) for the
             four batch steps and the float64 exact Harvest step at 22.05
@@ -2180,10 +2182,12 @@ def main():
                   replaces="world_tpu/ops/matlab.py:167-187"),
              chain_bound_ms=iirs["main_22k/lti_state_scan/S3"][
                  "chain_bound_ms"]),
-        line("randn_span", iirs["exact_22k/randn_span/0"],
-             path_launches("randn_span"),
-             source="world_tpu_torch/csrc/xorshift.cu",
-             replaces="world_tpu/ops/rng.py:82-102")]}),
+        dict(line("randn_span", iirs["exact_22k/randn_span/0"],
+                  path_launches("randn_span"),
+                  source="world_tpu_torch/csrc/xorshift.cu",
+                  replaces="world_tpu/ops/rng.py:82-102"),
+             chain_bound_ms=iirs["exact_22k/randn_span/0"][
+                 "chain_bound_ms"])]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

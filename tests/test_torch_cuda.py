@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
 modes, at every tile, the scan kernel, the contour-walk kernels, the
-IIR kernels (iir_zero_phase, lti_state_scan) and the RNG span kernel
-(randn_span) against their plain versions (torch.equal), IEEE
+IIR kernels (iir_zero_phase, lti_state_scan; the zero-phase kernel at
+its chunk edges) and the RNG span kernel (randn_span, at
+lane counts about a warp and the card's warps) against their plain versions
+(torch.equal), IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
@@ -585,6 +587,68 @@ def test_randn_span_kernel_matches_plain(cuda):
     offsets = np.cumsum(np.full(len(f0), 1500)) - 1500
     got = rng.randn_blocks_at(torch.as_tensor(offsets, device=cuda), 1537)
     want = rng.randn_blocks_at(torch.as_tensor(offsets), 1537)
+    assert torch.equal(got.cpu(), want)
+
+
+# csrc/iir.cu's zero-phase kernel: 512-sample chunks, the chain reading
+# its inputs 32 at a time in two register groups (64 a round).
+ZP_CHUNKS = (512, 64, 32)
+
+
+def _zp_rows(gen, lanes, n, cuda):
+    x = torch.randn((lanes, n), generator=gen, dtype=torch.float64,
+                    device=cuda) * 100.0
+    if n >= 3:
+        x[lanes // 2, n // 2] = float("nan")
+        x[lanes - 1, n - 1] = float("inf")
+        x[0, 1] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("lanes", [1, 16, 131, 132, 133, 1616])
+@pytest.mark.parametrize("recurrence", ["decimate", "smooth"])
+def test_iir_zero_phase_kernel_at_chunk_edges(cuda, recurrence, lanes):
+    """iir_zero_phase == its plain version (torch.equal, NaN at the same
+    places) at 1, 2 and 3 samples and at the chunk's and the chain's
+    register groups' sizes - 1, the sizes, + 1 and 2 x + 1, on lane
+    counts around the card's 132 SMs (blocks queueing past one an SM)
+    and 1,616 (16 rows of 101 smoothing sections), with a NaN, an inf
+    and a -inf."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(lanes)
+    lengths = {1, 2, 3}
+    for c in ZP_CHUNKS:
+        lengths |= {c - 1, c, c + 1, 2 * c + 1}
+    for i, n in enumerate(sorted(lengths)):
+        r = 2 + (i + lanes) % 11 if recurrence == "decimate" else None
+        check_iir("iir_zero_phase", _zp_rows(gen, lanes, n, cuda),
+                  recurrence, r)
+
+
+@pytest.mark.parametrize("recurrence,lanes", [("decimate", 1),
+                                              ("smooth", 133)])
+def test_iir_zero_phase_kernel_rows_past_shared_memory(cuda, recurrence,
+                                                       lanes):
+    """Rows of 40,000 samples (longer than 48 kHz decimation's 33,906 and
+    far past a block's shared memory), on one lane and on more lanes
+    than the card has SMs, == the plain version."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    check_iir("iir_zero_phase", _zp_rows(gen, lanes, 40000, cuda),
+              recurrence, 12 if recurrence == "decimate" else None)
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 32, 33, 2559, 9116])
+def test_randn_span_kernel_lane_counts(cuda, lanes):
+    """randn_span == its plain version at lane counts about a warp and at
+    CheapTrick's and D4C's spans (2,559 and 9,116 lanes), on starts in
+    no order with gaps, the largest using all 34 bits."""
+    rs = np.random.RandomState(lanes)
+    starts = rs.randint(0, 2 ** 34 - 64, size=lanes).astype(np.int64)
+    starts[-1] = 2 ** 34 - 1
+    top = int(starts.max())
+    got = rng.randn_span(torch.as_tensor(starts, device=cuda), top)
+    want = rng.randn_span_plain(torch.as_tensor(starts), top)
     assert torch.equal(got.cpu(), want)
 
 

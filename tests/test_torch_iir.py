@@ -4,7 +4,9 @@ decimation and the float64 F0 smoothing), lti_state_scan (the block-LTI
 form's carried state, float32 decimation and smoothing) and randn_span
 (exact-mode draws).  The kernels (csrc/iir.cu, csrc/xorshift.cu) are held
 to the plain versions on the card by tests/test_torch_cuda.py and
-chip_smoke.py.
+chip_smoke.py; here their designs are: the recurrences' chain/off-chain
+split, the jumps as ballots and the draws split among a warp's threads,
+each held to the plain version bit for bit.
 
 Tolerances: the float64 plain paths equal the per-sample loops they
 replace bit for bit (torch.equal), and decimation the goldens at
@@ -14,6 +16,9 @@ smoothing the host-numpy oracle at the JAX property tests' 1e-9; the
 float32 state scan JAX's float32 decimate and smoothing at
 test_primitives.py's rtol 1e-4 / atol 1e-6; the span of draws JAX's
 randn_blocks_at exactly (integer arithmetic and a power-of-two scale)."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -259,3 +264,189 @@ def test_wrapper_errors():
                            torch.eye(3))
     with pytest.raises(ValueError):
         rng.randn_span(torch.tensor([2 ** 34]), 2 ** 34)
+
+
+# The kernels' designs (csrc/iir.cu, csrc/xorshift.cu), held to the plain
+# versions here before any card runs them: the same operations in the
+# same order, written the way the kernels place them.  Python floats and
+# numpy float64 round every operation on its own, as the kernels'
+# _rn intrinsics do, so each comparison is bit for bit.
+
+def _coeffs(recurrence, r):
+    return [float(v) for v in iir._recurrence(recurrence, r)[2]]
+
+
+def _shift(rows, k):
+    """rows delayed by k samples along the last axis, zeros in front."""
+    out = np.zeros_like(rows)
+    out[:, k:] = rows[:, :rows.shape[1] - k]
+    return out
+
+
+def split_pass(rows, recurrence, r):
+    """One pass split as the kernel's chain thread and helpers split it:
+    a loop over only the chain's operations (and the products of the
+    next step, which wait on nothing), the off-chain terms as whole-row
+    operations."""
+    out = np.empty_like(rows)
+    if recurrence == "decimate":
+        a0, a1, a2, b0, b1 = _coeffs(recurrence, r)
+        for lane, xs in enumerate(rows.tolist()):
+            w0 = w1 = w2 = 0.0
+            q1, q2 = a1 * w1, a2 * w2
+            for k, xi in enumerate(xs):
+                wt = ((xi + a0 * w0) + q1) + q2
+                q2, q1 = a2 * w1, a1 * w0
+                w0, w1, w2 = wt, w0, w1
+                out[lane, k] = wt
+        wt = out
+        return (((b0 * wt + b1 * _shift(wt, 1)) + b1 * _shift(wt, 2))
+                + b0 * _shift(wt, 3))
+    b0, b1, a0, a1, _ = _coeffs(recurrence, r)
+    u = (b0 * rows + b1 * _shift(rows, 1)) + b0 * _shift(rows, 2)
+    for lane, us in enumerate(u.tolist()):
+        y1 = y2 = 0.0
+        q = a1 * y2
+        for k, uk in enumerate(us):
+            y = (uk + a0 * y1) + q
+            q = a1 * y1
+            y1, y2 = y, y1
+            out[lane, k] = y
+    return out
+
+
+def same_bits(got, want):
+    """NaN at the same places, equal elsewhere (signed zeros too)."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    return (np.array_equal(np.isnan(got), nan)
+            and np.array_equal(got[~nan], want[~nan])
+            and np.array_equal(np.signbit(got[~nan]),
+                               np.signbit(want[~nan])))
+
+
+ZERO_PHASE_CASES = ([("decimate", r) for r in range(2, 13)]
+                    + [("smooth", None)])
+
+
+@pytest.mark.parametrize("recurrence,r", ZERO_PHASE_CASES)
+def test_zero_phase_chain_split_equals_plain(gold, recurrence, r):
+    """The chain/off-chain split of each recurrence, forward, flipped and
+    again, == iir_zero_phase_plain bit for bit: on random rows (one with
+    a NaN, an inf and a -inf) and on a golden row (decimate's padded
+    utterance, the golden Harvest track for the smoothing)."""
+    rs = np.random.default_rng(40 + (r or 0))
+    rows = rs.standard_normal((3, 600)) * 100.0
+    rows[1, 100], rows[1, 300], rows[1, 599] = np.nan, np.inf, -np.inf
+    if recurrence == "decimate":
+        x = gold["x"][:2000]
+        golden_row = np.concatenate([2 * x[0] - x[9:0:-1], x,
+                                     2 * x[-1] - x[-2:-11:-1]])
+    else:
+        golden_row = np.repeat(gold["harvest_f0"], 2)[:1394]
+    for x in (rows, golden_row[None]):
+        with np.errstate(invalid="ignore", over="ignore"):
+            got = split_pass(split_pass(x, recurrence, r)[:, ::-1].copy(),
+                             recurrence, r)[:, ::-1]
+        want = iir.iir_zero_phase_plain(T(x), recurrence, r).numpy()
+        assert same_bits(got, want)
+
+
+def _rows_u32(rows):
+    return rows.numpy().view(np.uint32)
+
+
+def ballot_jump(rows, state):
+    """M state in the kernel's form: for word w, thread j's bit is the
+    parity of popc(row[w*32 + j] & state) over the four words, and the
+    ballot puts it at bit j.  rows (128, 4) uint32, state 4 words."""
+    anded = rows & np.asarray(state, np.uint32)
+    parity = np.unpackbits(anded.view(np.uint8), axis=-1).sum(-1) & 1
+    weights = 1 << np.arange(32, dtype=np.uint64)
+    return [int((parity[w * 32:(w + 1) * 32].astype(np.uint64)
+                 * weights).sum()) for w in range(4)]
+
+
+def lane_state(start):
+    """The state at draw ``start`` as a lane's warp makes it: one
+    ballot_jump a set bit, from the seed."""
+    rows = _rows_u32(rng._jump_rows(torch.device("cpu")))
+    s = list(rng.SEED)
+    for b in range(int(start).bit_length()):
+        if (start >> b) & 1:
+            s = ballot_jump(rows[b], s)
+    return s
+
+
+@pytest.mark.parametrize("bit", range(rng._MAX_LOG2))
+def test_ballot_jump_equals_states_at_draws(bit):
+    """The ballot form of the jumps over _jump_rows' packing ==
+    states_at_draws, for a start with ``bit`` set alone and one with
+    bit and lower bits set."""
+    starts = [1 << bit, (1 << bit) | ((bit * 0x9E3779B1) % (1 << bit))]
+    want = rng.states_at_draws(torch.tensor(starts)).numpy()
+    for start, w in zip(starts, want):
+        assert lane_state(start) == [int(v) for v in w], start
+
+
+def test_split_table_layout_is_the_kernels():
+    """rng._DRAWERS, which shapes _split_rows, is csrc/xorshift.cu's
+    kDrawers (the kernel reads kDrawers - 1 matrices of 128 packed rows),
+    and _LANE and _MAX_LOG2 are its kLane and kMaxBits."""
+    src = (Path(iir.__file__).resolve().parents[1] / "csrc"
+           / "xorshift.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kDrawers") == rng._DRAWERS
+    assert const("kLane") == rng._LANE
+    assert const("kMaxBits") == rng._MAX_LOG2
+    assert tuple(rng._split_rows(torch.device("cpu")).shape) == (
+        const("kDrawers") - 1, const("kRows"), 4)
+
+
+def test_split_rows_are_powers_of_the_draw_matrix():
+    """The draw split's table: entry t - 1 is M_draw^(t * 64 / _DRAWERS)
+    packed, M_draw^k made here by k products of _jump_matrices()[0]."""
+    mats = rng._jump_matrices()
+    per = rng._LANE // rng._DRAWERS
+    rows = _rows_u32(rng._split_rows(torch.device("cpu")))
+    assert rows.shape == (rng._DRAWERS - 1, 128, 4)
+    bits = ((rows[..., None] >> np.arange(32, dtype=np.uint32)) & 1)
+    power = np.eye(128, dtype=np.uint8)
+    for k in range(1, rng._LANE):
+        power = rng._gf2_matmul(mats[0], power)
+        if k % per == 0:
+            assert np.array_equal(bits[k // per - 1].reshape(128, 128), power)
+
+
+def _draws(state, count):
+    """``count`` normals from a state, xorshift128 in Python ints."""
+    x, y, z, w = state
+    out = []
+    for _ in range(count):
+        acc = 0
+        for _ in range(12):
+            t = (x ^ (x << 11)) & 0xFFFFFFFF
+            x, y, z = y, z, w
+            w = (w ^ (w >> 19)) ^ (t ^ (t >> 8))
+            acc += w >> 4
+        out.append(float(acc) * 2.0 ** -28 - 6.0)
+    return out
+
+
+@pytest.mark.parametrize("start", [0, 1, 63, 64, 2 ** 20 + 5,
+                                   2 ** 34 - 1 - 64])
+def test_draw_split_model_equals_plain(start):
+    """A lane as the kernel's warp draws it: the lane's state by ballot
+    jumps, thread t's by a ballot jump of the split table (thread 0 the
+    lane's own), each thread's 64 / _DRAWERS draws in order == the
+    plain version's lane bit for bit."""
+    split = _rows_u32(rng._split_rows(torch.device("cpu")))
+    s = lane_state(start)
+    per = rng._LANE // rng._DRAWERS
+    got = []
+    for t in range(rng._DRAWERS):
+        got += _draws(s if t == 0 else ballot_jump(split[t - 1], s), per)
+    want = rng.randn_span_plain(torch.tensor([start]), start)[0].numpy()
+    assert np.array_equal(np.array(got), want)

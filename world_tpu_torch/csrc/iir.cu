@@ -10,42 +10,83 @@
 // sample).  Per lane it computes flip(f(flip(f(x)))) in one launch, f
 // one of two recurrences from a zero state:
 //   decimate's 3rd-order direct-form-II stage (src/matlabfunctions.cpp:
-//   27-125):  wt = xi + a0*w0 + a1*w1 + a2*w2,
-//             y  = b0*wt + b1*w0 + b1*w1 + b0*w2;
+//   27-125):  wt = ((x + a0*w0) + a1*w1) + a2*w2,
+//             y  = ((b0*wt + b1*w0) + b1*w1) + b0*w2;
 //   the smoothing biquad, direct form I (src/harvest.cpp:1058-1085):
-//             y  = b0*x + b1*x1 + b0*x2 + a0*y1 + a1*y2.
-// Each sum is taken left to right and every product and sum rounds on its
-// own (the _rn intrinsics, and the source is built with -fmad=false), as
-// the plain version's separate tensor ops do, so the kernel equals it bit
-// for bit.
+//             y  = (((b0*x + b1*x1) + b0*x2) + a0*y1) + a1*y2.
+// Every product and sum rounds on its own (the _rn intrinsics, and the
+// source is built with -fmad=false), left to right as the plain
+// version's separate tensor ops, so the kernel equals it bit for bit.
 //
 // lti_state_scan replaces the lax.scan of lti_block_filter
 // (world_tpu/ops/matlab.py:167-187), a Python loop over 128-sample blocks
 // in the port: states[j] = s, then s = AL s + p[j], from s = 0.  Row i of
 // AL s + p[j] is ((s0*AL[i,0] + s1*AL[i,1]) + ...) + p[j,i], the order of
 // the plain version (world_tpu_torch/ops/iir.py: lti_state_scan_plain).
+// One thread walks one lane (kThreads lanes a block).
 //
 // Bound: the chain.  A lane is one dependent sequence: per sample, through
-// w0, one multiply and three adds (decimate), through y1 one multiply and
-// two adds (the biquad); per block, one multiply and S adds.  No order-
-// keeping version beats length x 2 passes x that latency
-// (tools/iir_chain.cu measures it); bytes and operations are far below.
-// A lane cannot be split without reassociating, so a call of few lanes
-// (decimate's one row in analyze()) leaves the card nearly empty.
+// w0, a multiply and three adds (decimate: 16.35 ns on the H100), through
+// y1 a multiply and two adds (the biquad: 12.28 ns); per block of the
+// state scan a multiply and S adds.  No order-keeping version beats
+// length x 2 passes x that latency (tools/iir_chain.cu measures it);
+// bytes and operations are far below.  A lane cannot be split without
+// reassociating, so the aim is to issue nothing but the chain on the
+// chain's thread.
 //
-// Design.  One thread walks one lane, keeping the recurrence's state in
-// registers.  The inputs of the next kGroup samples are loaded into
-// registers before the current group's steps, so their latency hides
-// behind the chain.  The forward pass writes f(x) to the output; the
-// backward pass reads it from the end and writes its result in place at
-// the same index, so no flipped copy is made.
+// Zero-phase design.  A block of kZpThreads walks one lane: thread 0
+// walks the lane's chain, and only that (decimate: the multiply and three
+// adds through w0, plus the two products a1*w1 and a2*w2 of the next
+// step, which wait on nothing; the biquad: a multiply and two adds
+// through y1, plus a1*y1 for the next step).  Warps 1-3, the helpers, do
+// everything else, kChunk samples at a time, through shared memory:
+//   - copy the inputs two chunks ahead into a ring of three raw buffers
+//     (cp.async, 8 bytes an element, consecutive threads on consecutive
+//     samples; zeros past the row's end);
+//   - the biquad: u = (b0*x + b1*x1) + b0*x2, the left-to-right prefix of
+//     its sum, for the next chunk, from the raw ring (x1 and x2 of a
+//     chunk's first samples are the previous chunk's last);
+//   - decimate: y = ((b0*wt + b1*w0) + b1*w1) + b0*w2 of the last chunk
+//     from the chain's wt values (each chunk's buffer starts with the
+//     three wt values before it, which the chain thread writes there);
+//   - write the last chunk's outputs, coalesced.
+// The chain thread reads its inputs from shared memory kGroup at a time
+// into registers, the next group's while the current one steps (two
+// register groups in turn), and waits only at a chunk's end (one
+// __syncthreads a chunk).  The backward pass reads the forward pass's
+// output (in L2) from the end, in reverse chunks, and writes in place:
+// in a chunk's phase the helpers read two chunks ahead and write one
+// behind, so no index is read after it is written.  Rows of any length
+// work: only the chunks live in shared memory.
+// Lanes to blocks: one lane a block at every lane count.  The float64
+// inputs the port runs have 1 lane (analyze()'s decimation and
+// smoothing) or 16 (the float64 batch step's), so each chain has an SM,
+// and its warp a scheduler, to itself (warp w issues on sub-partition
+// w % 4; the helpers are warps 1-3).  More lanes stay correct: the
+// blocks queue on the SMs.
+// Shared memory: 28.7 KB a block; 168 registers, no spills.  On the H100
+// (NVIDIA H100 80GB HBM3, 700 W) a sample takes ~20 ns of decimate's
+// 16.35 ns chain (world_tpu_torch/tools/iir_bench.py).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kGroup = 16;      // samples loaded ahead of their steps
+constexpr int kThreads = 128;   // lanes a block of the state scan
+
+// The zero-phase kernel's shape.
+constexpr int kZpThreads = 128;   // thread 0: the chain; warps 1-3: helpers
+constexpr int kHelpers = kZpThreads - 32;
+constexpr int kChunk = 512;     // samples a chunk
+constexpr int kPad = 4;         // slots before a chunk's chain outputs
+constexpr int kGroup = 32;      // inputs the chain reads ahead
+// Samples of a chunk each helper handles (kChunk over kHelpers).
+constexpr int kPerHelper = (kChunk + kHelpers - 1) / kHelpers;
+// Shared memory, in doubles: the raw ring (3 chunks), u (2) and the
+// chain's outputs (2, history slots in front).
+constexpr int kOut = kPad + kChunk;
+constexpr int kZpDoubles = 3 * kChunk + 2 * kChunk + 2 * kOut;
+static_assert(kChunk % (2 * kGroup) == 0, "chunk shape");
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -60,93 +101,236 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-// c = (a0, a1, a2, b0, b1) of _DECIMATE_COEFFS[r].
+__device__ __forceinline__ void copy_async8(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for all but the most recent group of this thread's copies.
+__device__ __forceinline__ void wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// Barrier of the helper warps alone (barrier 0 is __syncthreads).
+__device__ __forceinline__ void helpers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kHelpers) : "memory");
+}
+
+// c = (a0, a1, a2, b0, b1) of _DECIMATE_COEFFS[r].  The chain reads the
+// raw inputs; the helpers turn its wt values into outputs.
 struct Decimate {
+  static constexpr bool kPrep = false;
   double a0, a1, a2, b0, b1;
-  double w0, w1, w2;
-  __device__ Decimate(const double* c)
-      : a0(c[0]), a1(c[1]), a2(c[2]), b0(c[3]), b1(c[4]),
-        w0(0.0), w1(0.0), w2(0.0) {}
+  double w0, w1, w2, q1, q2;    // q1 = a1*w1, q2 = a2*w2
+  __device__ Decimate(double c0, double c1, double c2, double c3, double c4)
+      : a0(c0), a1(c1), a2(c2), b0(c3), b1(c4) {
+    reset();
+  }
+  __device__ void reset() {
+    w0 = w1 = w2 = 0.0;
+    q1 = mul_rn(a1, w1);
+    q2 = mul_rn(a2, w2);
+  }
   __device__ __forceinline__ double step(double xi) {
-    const double wt = add_rn(add_rn(add_rn(xi, mul_rn(a0, w0)),
-                                    mul_rn(a1, w1)),
-                             mul_rn(a2, w2));
-    const double y = add_rn(add_rn(add_rn(mul_rn(b0, wt), mul_rn(b1, w0)),
-                                   mul_rn(b1, w1)),
-                            mul_rn(b0, w2));
+    const double wt = add_rn(add_rn(add_rn(xi, mul_rn(a0, w0)), q1), q2);
+    q2 = mul_rn(a2, w1);          // the next step's a2*w2 and a1*w1
+    q1 = mul_rn(a1, w0);
     w2 = w1;
     w1 = w0;
     w0 = wt;
-    return y;
+    return wt;
+  }
+  // The wt values before a chunk, into its buffer's last pad slots.
+  __device__ __forceinline__ void history(double* out) const {
+    out[kPad - 3] = w2;
+    out[kPad - 2] = w1;
+    out[kPad - 1] = w0;
+  }
+  __device__ __forceinline__ double prep(double, double, double) const {
+    return 0.0;                 // unused: the chain reads the raw inputs
+  }
+  // Output of the sample whose wt sits at p (its predecessors before).
+  __device__ __forceinline__ double output(const double* p) const {
+    return add_rn(add_rn(add_rn(mul_rn(b0, p[0]), mul_rn(b1, p[-1])),
+                         mul_rn(b1, p[-2])),
+                  mul_rn(b0, p[-3]));
   }
 };
 
-// c = (b0, b1, a0, a1) of the smoothing biquad.
+// c = (b0, b1, a0, a1, unused) of the smoothing biquad.  The helpers give
+// the chain u = (b0*x + b1*x1) + b0*x2; the chain's y is the output.
 struct Biquad {
+  static constexpr bool kPrep = true;
   double b0, b1, a0, a1;
-  double x1, x2, y1, y2;
-  __device__ Biquad(const double* c)
-      : b0(c[0]), b1(c[1]), a0(c[2]), a1(c[3]),
-        x1(0.0), x2(0.0), y1(0.0), y2(0.0) {}
-  __device__ __forceinline__ double step(double xt) {
-    const double y = add_rn(add_rn(add_rn(add_rn(mul_rn(b0, xt),
-                                                 mul_rn(b1, x1)),
-                                          mul_rn(b0, x2)),
-                                   mul_rn(a0, y1)),
-                            mul_rn(a1, y2));
-    x2 = x1;
-    x1 = xt;
+  double y1, y2, q;             // q = a1*y2
+  __device__ Biquad(double c0, double c1, double c2, double c3, double)
+      : b0(c0), b1(c1), a0(c2), a1(c3) {
+    reset();
+  }
+  __device__ void reset() {
+    y1 = y2 = 0.0;
+    q = mul_rn(a1, y2);
+  }
+  __device__ __forceinline__ double step(double u) {
+    const double y = add_rn(add_rn(u, mul_rn(a0, y1)), q);
+    q = mul_rn(a1, y1);           // the next step's a1*y2
     y2 = y1;
     y1 = y;
     return y;
   }
+  __device__ __forceinline__ void history(double*) const {}
+  __device__ __forceinline__ double prep(double x, double x1,
+                                         double x2) const {
+    return add_rn(add_rn(mul_rn(b0, x), mul_rn(b1, x1)), mul_rn(b0, x2));
+  }
+  __device__ __forceinline__ double output(const double* p) const {
+    return p[0];
+  }
 };
 
-// One pass of f over src[at(0)], src[at(1)], ..., writing dst[at(k)],
-// with at(k) = k (forward) or n - 1 - k (backward).  src and dst may be
-// the same row: every group is loaded before it is written, and the next
-// group's loads touch other indices.
-template <class F, bool kBackward>
-__device__ void pass(F f, const double* src, double* dst, long long n) {
-  double cur[kGroup], nxt[kGroup];
+// The chain over m samples: inputs at in[k], outputs to out[k].  Two
+// groups of kGroup inputs in registers, in turn: one steps while the next
+// is read (no copies between them).  A group past m steps on slots whose
+// results nobody reads (the chunk's buffers hold kChunk samples, a
+// multiple of 2 * kGroup).
+__device__ __forceinline__ void read_group(double (&v)[kGroup],
+                                           const double* in) {
 #pragma unroll
-  for (int k = 0; k < kGroup; ++k) {
-    const long long i = k;
-    cur[k] = i < n ? src[kBackward ? n - 1 - i : i] : 0.0;
-  }
-  for (long long base = 0; base < n; base += kGroup) {
-    const long long next = base + kGroup;
-    if (next < n) {
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        const long long i = next + k;
-        nxt[k] = i < n ? src[kBackward ? n - 1 - i : i] : 0.0;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      const long long i = base + k;
-      if (i < n) dst[kBackward ? n - 1 - i : i] = f.step(cur[k]);
-    }
-    if (next < n) {
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) cur[k] = nxt[k];
-    }
-  }
+  for (int k = 0; k < kGroup; ++k) v[k] = in[k];
 }
 
 template <class F>
-__global__ void __launch_bounds__(kThreads)
-zero_phase_kernel(const double* __restrict__ x, double* y, int lanes,
-                  long long n, const double c0, const double c1,
-                  const double c2, const double c3, const double c4) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= lanes) return;
-  const double c[5] = {c0, c1, c2, c3, c4};
-  const double* xr = x + static_cast<long long>(lane) * n;
-  double* yr = y + static_cast<long long>(lane) * n;
-  pass<F, false>(F(c), xr, yr, n);
-  pass<F, true>(F(c), yr, yr, n);
+__device__ __forceinline__ void step_group(F& f, const double (&v)[kGroup],
+                                           double* out) {
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) out[k] = f.step(v[k]);
+}
+
+template <class F>
+__device__ __forceinline__ void run_chain(F& f, const double* in,
+                                          double* out, int m) {
+  double a[kGroup], b[kGroup];
+  read_group(a, in);
+  for (int g = 0; g < m; g += 2 * kGroup) {
+    if (g + kGroup < m) read_group(b, in + g + kGroup);
+    step_group(f, a, out + g);
+    if (g + kGroup >= m) break;
+    if (g + 2 * kGroup < m) read_group(a, in + g + 2 * kGroup);
+    step_group(f, b, out + g + kGroup);
+  }
+}
+
+// One pass of f over the block's lane: row[at(0)], row[at(1)], ... of src
+// to dst[at(k)], at(k) = k (forward) or n - 1 - k (backward).  src and
+// dst may be the same row (see the design note).  Phase c (between two
+// __syncthreads): the chain walks chunk c; the helpers write chunk c-1,
+// start copying chunk c+2, wait for chunk c+1 and (the biquad) compute
+// its u.
+template <class F, bool kBackward>
+__device__ void zero_phase_pass(F& f, const double* src, double* dst,
+                                long long n, double* smem) {
+  constexpr int C = kChunk;
+  double* raw = smem;                   // 3 chunks: chunk c in c % 3
+  double* in = raw + 3 * C;             // 2 chunks: u of chunk c in c % 2
+  double* out = in + 2 * C;             // 2 x kOut: chain out, c % 2
+  const long long chunks = (n + C - 1) / C;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int h = tid - 32;               // helper index (warps 1-3)
+
+  auto at = [&](long long c, int k) {
+    const long long pos = c * C + k;
+    return kBackward ? n - 1 - pos : pos;
+  };
+  auto load = [&](long long c) {        // chunk c into raw[c % 3]
+    double* r = raw + (c % 3) * C;
+#pragma unroll
+    for (int i = 0; i < kPerHelper; ++i) {
+      const int k = h + i * kHelpers;
+      if (k >= C) break;
+      if (c * C + k < n) {
+        copy_async8(r + k, src + at(c, k));
+      } else {
+        r[k] = 0.0;
+      }
+    }
+    commit_copies();
+  };
+  auto prep = [&](long long c) {        // chunk c's u into in[c % 2]
+    const double* r = raw + (c % 3) * C;
+    const double* p = raw + ((c + 2) % 3) * C;   // chunk c - 1
+    double* u = in + (c % 2) * C;
+#pragma unroll
+    for (int i = 0; i < kPerHelper; ++i) {
+      const int k = h + i * kHelpers;
+      if (k >= C) break;
+      const double x1 = k >= 1 ? r[k - 1] : (c > 0 ? p[C - 1] : 0.0);
+      const double x2 = k >= 2 ? r[k - 2] : (c > 0 ? p[C - 2 + k] : 0.0);
+      u[k] = f.prep(r[k], x1, x2);
+    }
+  };
+  auto emit = [&](long long c) {        // chunk c's outputs to dst
+    const double* o = out + (c % 2) * kOut + kPad;
+#pragma unroll
+    for (int i = 0; i < kPerHelper; ++i) {
+      const int k = h + i * kHelpers;
+      if (k >= C) break;
+      if (c * C + k < n) dst[at(c, k)] = f.output(o + k);
+    }
+  };
+
+  f.reset();
+  if (h >= 0) {
+    load(0);
+    if (chunks > 1) load(1); else commit_copies();
+    wait_all_but_last();
+    if (F::kPrep) {
+      helpers_sync();
+      prep(0);
+    }
+  }
+  __syncthreads();
+  for (long long c = 0; c < chunks; ++c) {
+    if (tid == 0) {
+      const int m = static_cast<int>(c * C + C <= n ? C : n - c * C);
+      double* o = out + (c % 2) * kOut;
+      f.history(o);
+      run_chain(f, F::kPrep ? in + (c % 2) * C : raw + (c % 3) * C,
+                o + kPad, m);
+    } else if (h >= 0) {
+      if (c > 0) emit(c - 1);
+      if (c + 2 < chunks) load(c + 2); else commit_copies();
+      wait_all_but_last();              // chunk c + 1 has landed
+      if (F::kPrep && c + 1 < chunks) {
+        helpers_sync();
+        prep(c + 1);
+      }
+    }
+    __syncthreads();
+  }
+  if (h >= 0) emit(chunks - 1);
+  __syncthreads();
+}
+
+template <class F>
+__global__ void __launch_bounds__(kZpThreads)
+zero_phase_kernel(const double* x, double* y, long long n, double c0,
+                  double c1, double c2, double c3, double c4) {
+  __shared__ double smem[kZpDoubles];
+  const long long row = static_cast<long long>(blockIdx.x) * n;
+  F f(c0, c1, c2, c3, c4);
+  zero_phase_pass<F, false>(f, x + row, y + row, n, smem);
+  zero_phase_pass<F, true>(f, y + row, y + row, n, smem);
+}
+
+template <class F>
+int launch_zero_phase(const double* x, double* y, int lanes, long long n,
+                      double c0, double c1, double c2, double c3,
+                      double c4, cudaStream_t s) {
+  zero_phase_kernel<F><<<lanes, kZpThreads, 0, s>>>(x, y, n, c0, c1, c2,
+                                                     c3, c4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int S>
@@ -221,15 +405,14 @@ extern "C" int iir_zero_phase_launch(int kind, const void* x, void* y,
   const double* xd = static_cast<const double*>(x);
   double* yd = static_cast<double*>(y);
   if (kind == 0) {
-    zero_phase_kernel<Decimate><<<blocks(lanes), kThreads, 0, s>>>(
-        xd, yd, lanes, n, c0, c1, c2, c3, c4);
-  } else if (kind == 1) {
-    zero_phase_kernel<Biquad><<<blocks(lanes), kThreads, 0, s>>>(
-        xd, yd, lanes, n, c0, c1, c2, c3, c4);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_zero_phase<Decimate>(xd, yd, lanes, n, c0, c1, c2, c3, c4,
+                                       s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (kind == 1) {
+    return launch_zero_phase<Biquad>(xd, yd, lanes, n, c0, c1, c2, c3, c4,
+                                     s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // p, states: contiguous (lanes, nblk, S); al: contiguous (S, S); all float

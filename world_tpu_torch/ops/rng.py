@@ -8,7 +8,8 @@ over GF(2), so jumping k draws ahead is a 128x128 bit-matrix power:
 ``states_at_draws`` lands any number of stream positions in parallel.
 
 On the card a span of the stream is one launch of csrc/xorshift.cu
-(``randn_span``: each lane's jump and its draws); on the CPU its plain
+(``randn_span``: each lane's jump, its split among _DRAWERS threads and
+the draws); on the CPU its plain
 version runs the jump as a float32 matmul of 0/1 values (every sum is at
 most 128, so exact), then ``% 2``, and the draws as a loop, the
 xorshift words carried in int64 masked to 32 bits (torch.uint32 has few
@@ -33,6 +34,10 @@ _MASK = 0xFFFFFFFF
 _LANE = 64
 # Jump matrices M^(2^b), b < _MAX_LOG2: stream positions below 2^34.
 _MAX_LOG2 = 34
+# Threads of a lane's warp that draw its _LANE normals on the card, each
+# from a jump of its own (_split_rows): csrc/xorshift.cu's kDrawers, which
+# sets the table's layout (tests/test_torch_iir.py holds the two equal).
+_DRAWERS = 8
 
 
 def _state_step_bits(bits):
@@ -57,24 +62,35 @@ def _state_step_bits(bits):
     return out
 
 
+def _gf2_matmul(a, b):
+    """Product of two 0/1 matrices over GF(2) (uint8)."""
+    return (a.astype(np.int32) @ b.astype(np.int32) & 1).astype(np.uint8)
+
+
 @functools.lru_cache(maxsize=1)
 def _jump_matrices(max_log2=_MAX_LOG2):
     """M_draw^(2^b) for b in 0..max_log2-1, where M_draw = 12 state steps.
     (max_log2, 128, 128) uint8; next_bits = (bits @ M.T) & 1."""
     eye = np.eye(128, dtype=np.uint8)
     m_step = np.stack([_state_step_bits(eye[i]) for i in range(128)], axis=1)
-
-    def matmul2(a, b):
-        return (a.astype(np.int32) @ b.astype(np.int32) & 1).astype(np.uint8)
-
     m_draw = eye
     for _ in range(12):
-        m_draw = matmul2(m_step, m_draw)
+        m_draw = _gf2_matmul(m_step, m_draw)
     mats = np.empty((max_log2, 128, 128), np.uint8)
     mats[0] = m_draw
     for b in range(1, max_log2):
-        mats[b] = matmul2(mats[b - 1], mats[b - 1])
+        mats[b] = _gf2_matmul(mats[b - 1], mats[b - 1])
     return mats
+
+
+def _draw_jump(k):
+    """M_draw^k (128, 128) uint8: the product of the jump matrices of k's
+    set bits."""
+    out = np.eye(128, dtype=np.uint8)
+    for b in range(int(k).bit_length()):
+        if (k >> b) & 1:
+            out = _gf2_matmul(_jump_matrices()[b], out)
+    return out
 
 
 def _seed_bits():
@@ -133,14 +149,32 @@ def randn_block(state, n):
     return torch.stack(draws, -1)
 
 
+def _pack_rows(mats):
+    """0/1 matrices (..., 128, 128) with each row packed little-endian
+    into 4 words of 32 bits: (..., 128, 4) int32 (csrc/xorshift.cu's
+    layout; word k of row i holds M[i, 32k:32k+32])."""
+    words = np.packbits(mats, axis=-1, bitorder="little")
+    return words.view("<u4").view(np.int32).copy()
+
+
 @functools.lru_cache(maxsize=None)
 def _jump_rows(device):
-    """The jump matrices' rows packed little-endian into 4 words of 32
-    bits, (_MAX_LOG2, 128, 4) int32 on ``device`` (csrc/xorshift.cu's
-    layout), uploaded once per device."""
-    words = np.packbits(_jump_matrices(), axis=-1, bitorder="little")
-    return torch.as_tensor(words.view("<u4").view(np.int32).copy(),
-                           device=device)
+    """The jump matrices' rows, packed: (_MAX_LOG2, 128, 4) int32 on
+    ``device``, uploaded once per device."""
+    return torch.as_tensor(_pack_rows(_jump_matrices()), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_rows(device):
+    """The draw split's matrices M_draw^(t * _LANE / _DRAWERS), t = 1 ..
+    _DRAWERS - 1 (drawing thread t of a lane starts there), packed:
+    (_DRAWERS - 1, 128, 4) int32 on ``device``, uploaded once per
+    device."""
+    per = _LANE // _DRAWERS
+    mats = np.zeros((_DRAWERS - 1, 128, 128), np.uint8)
+    for t in range(1, _DRAWERS):
+        mats[t - 1] = _draw_jump(per * t)
+    return torch.as_tensor(_pack_rows(mats), device=device)
 
 
 def randn_span_plain(starts, max_start):
@@ -169,11 +203,12 @@ def randn_span(starts, max_start):
     if starts.numel() == 0:
         return out
     entry = _cuda.entry("xorshift", "randn_span_launch",
-                        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
-                        + (ctypes.c_uint32,) * 4
+                        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p) + (ctypes.c_uint32,) * 4
                         + (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
     _cuda.launch("randn_span", entry, starts.device, starts.data_ptr(),
-                 _jump_rows(starts.device).data_ptr(), n_bits, *SEED,
+                 _jump_rows(starts.device).data_ptr(), n_bits,
+                 _split_rows(starts.device).data_ptr(), *SEED,
                  out.data_ptr(), starts.shape[0])
     _RANDN_SPAN.launches += 1
     return out

@@ -4,16 +4,20 @@ their plain versions and their bounds, and the default entry points that
 run them.
 
     python world_tpu_torch/tools/iir_bench.py [--root DIR] [--reps 3]
-        [--out FILE]
+        [--kernels] [--out FILE]
 
 times ``W.analyze(x, fs)`` then ``W.synthesize(p)`` with their defaults
 (float64, Harvest, the reference RNG, on the card) on the golden
 utterances at 22.05 and 48 kHz: wall seconds of ``--reps`` synchronized
 calls after one discarded, the real-time factor of their median, and the
 top-level torch calls of one call (a TorchFunctionMode's count), one
-JSON line a rate.  ``--root`` imports world_tpu_torch from another
-checkout (for example the parent commit, unpacked with ``git
-archive``), so both are timed by the same code.
+JSON line a rate.  ``--kernels`` also times iir_zero_phase and
+randn_span on every call those runs and one float64 exact Harvest batch
+step of 16 rows at each rate make (``kernel_times``: device ms, event
+ms, the output's digest), one line a call.  ``--root`` imports
+world_tpu_torch from another checkout (for example the parent commit,
+unpacked with ``git archive``), so both are timed by the same code on the
+same inputs, and equal digests show equal outputs.
 
 chip_smoke.py records each wrapper's arguments on the paths that call it
 (``recording``) and hands them to ``measure``, which checks the kernel
@@ -31,10 +35,15 @@ places, torch.equal elsewhere) and reports:
                    peak rate (float64 or float32; integer operations at
                    the float32 lanes' one instruction a cycle, 33.5e12 a
                    second: the integer units are no faster);
-  chain_bound_ms   the recurrences only: the dependent steps of one lane
-                   (samples x 2 passes, or blocks) times one step's
+  chain_bound_ms   the dependent steps of one lane (samples x 2 passes,
+                   or blocks; randn_span: the 12 xorshift steps of one
+                   draw, the least any order needs, since every draw's
+                   state can be reached by jumps) times one step's
                    latency on the card (tools/iir_chain.cu: a multiply
-                   and the recurrence's dependent adds);
+                   and the recurrence's dependent adds, or an xorshift
+                   step);
+  chain_share      chain_bound_ms / device_ms (ms where the profiler
+                   recorded no device time);
   library_ms       null: no PyTorch call computes these recurrences in the
                    reference's order, nor the reference's stream.
 Needs a CUDA device.
@@ -75,11 +84,34 @@ def build_chain():
                                 + _cuda.SOURCE_FLAGS["iir"], CHAIN_SRC)
 
 
+def _chain_ns(torch, launch, n, reps, check):
+    """Nanoseconds per step of a one-thread chain: ``launch(count)`` runs
+    count steps; the chain at 2n and at n steps (CUDA events, the least
+    of ``reps`` each), the difference over n.  ``check()`` raises on a
+    bad result."""
+    def best_ms(count):
+        times = []
+        for _ in range(reps):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            rc = launch(count)
+            t1.record()
+            if rc != 0:
+                raise RuntimeError(f"chain launch: cudaError {rc}")
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        check()
+        return min(times)
+
+    best_ms(n)                                   # warm-up
+    return (best_ms(2 * n) - best_ms(n)) * 1e6 / n
+
+
 @functools.lru_cache(maxsize=None)
 def step_latency_ns(torch, dtype_name, adds, n=1 << 20, reps=5):
     """Nanoseconds per step of a multiply then ``adds`` dependent adds of
-    ``dtype_name`` on the card: the chain at 2n and at n steps (CUDA
-    events, the least of ``reps`` each), the difference over n."""
+    ``dtype_name`` on the card."""
     fn = ctypes.CDLL(str(build_chain()[0])).iir_chain_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
@@ -88,25 +120,25 @@ def step_latency_ns(torch, dtype_name, adds, n=1 << 20, reps=5):
     out = torch.empty(1, dtype=getattr(torch, dtype_name), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
-    def best_ms(count):
-        times = []
-        for _ in range(reps):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            rc = fn(out.element_size(), adds, out.data_ptr(), count, 0.5,
-                    1.0, stream)
-            t1.record()
-            if rc != 0:
-                raise RuntimeError(f"iir chain launch: cudaError {rc}")
-            t1.synchronize()
-            times.append(t0.elapsed_time(t1))
+    def check():
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"iir chain gave {float(out)}")
-        return min(times)
+    return _chain_ns(torch, lambda count: fn(
+        out.element_size(), adds, out.data_ptr(), count, 0.5, 1.0, stream),
+        n, reps, check)
 
-    best_ms(n)                                   # warm-up
-    return (best_ms(2 * n) - best_ms(n)) * 1e6 / n
+
+@functools.lru_cache(maxsize=None)
+def xorshift_step_ns(torch, n=1 << 20, reps=5):
+    """Nanoseconds per xorshift128 step of the reference RNG on the card
+    (one thread, each step's w waiting on the last)."""
+    fn = ctypes.CDLL(str(build_chain()[0])).xorshift_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(2, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    return _chain_ns(torch, lambda count: fn(out.data_ptr(), count, stream),
+                     n, reps, lambda: None)
 
 
 @contextlib.contextmanager
@@ -141,8 +173,9 @@ def _wrappers(name):
 
 
 def _work(name, args):
-    """(bytes, operations, ops dtype, chain steps, chain adds, what) of
-    one call on these arguments."""
+    """(bytes, operations, ops dtype, chain steps, chain, what) of one
+    call on these arguments; chain is (dtype, adds) of the recurrences'
+    step, "xorshift" for the draws."""
     x = args[0]
     elt = x.element_size()
     if name == "iir_zero_phase":
@@ -150,24 +183,26 @@ def _work(name, args):
         n = x.shape[-1]
         lanes = x.numel() // max(n, 1)
         return (2 * x.numel() * elt, 2 * x.numel() * SAMPLE_OPS[recurrence],
-                "float64", 2 * n, CHAIN_ADDS[recurrence],
+                "float64", 2 * n, ("float64", CHAIN_ADDS[recurrence]),
                 f"{recurrence} r={args[2] if len(args) > 2 else None} "
                 f"lanes={lanes}")
     if name == "lti_state_scan":
         AL = args[1]
         S = AL.shape[0]
         nblk = x.shape[-2]
+        dtype = str(x.dtype).split(".")[-1]
         return (2 * x.numel() * elt + AL.numel() * elt,
-                2 * S * x.numel(), str(x.dtype).split(".")[-1], nblk, S,
+                2 * S * x.numel(), dtype, nblk, (dtype, S),
                 f"S={S} nblk={nblk}")
     # randn_span: per set bit of a start, 128 rows of 4 ANDs, 3 XORs, a
     # popc and the bit's placing (2); per draw 12 steps of 8 and 2 more.
+    # Its chain: the 12 steps of one draw.
     starts = x.cpu()
     bits = sum(int(s).bit_count() for s in starts.tolist())
     n_bits = max(1, int(args[1]).bit_length())
     ops = bits * 128 * 10 + starts.numel() * 64 * (12 * 8 + 2)
     nbytes = starts.numel() * (8 + 64 * 8) + n_bits * 128 * 16
-    return nbytes, ops, "int", 0, 0, f"lanes={starts.numel()}"
+    return nbytes, ops, "int", 12, "xorshift", f"lanes={starts.numel()}"
 
 
 def measure(torch, name, args, kwargs, plain_reps=1):
@@ -197,11 +232,13 @@ def measure(torch, name, args, kwargs, plain_reps=1):
     equal = bool(torch.equal(torch.isnan(got), nan)
                  and torch.equal(got[~nan], want[~nan]))
     diff = (got[~nan] - want[~nan]).abs()
-    nbytes, n_ops, ops_dtype, steps, adds, what = _work(name, args)
+    nbytes, n_ops, ops_dtype, steps, chain, what = _work(name, args)
     bytes_ms = nbytes / bench.PEAK_BYTES_PER_S * 1e3
     rate = (PEAK_INT_OPS_PER_S if ops_dtype == "int"
             else bench.PEAK_OPS_PER_S[ops_dtype])
     ops_ms = n_ops / rate * 1e3
+    lat = (xorshift_step_ns(torch) if chain == "xorshift"
+           else step_latency_ns(torch, *chain))
     out = {
         "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
         "dtype": str(got.dtype).split(".")[-1], "what": what,
@@ -216,13 +253,12 @@ def measure(torch, name, args, kwargs, plain_reps=1):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": nbytes, "operations": n_ops,
         "library_ms": None, "library_device_ms": None,
-        "chain_steps": steps, "step_latency_ns": None,
-        "chain_bound_ms": None,
+        "chain_steps": steps, "step_latency_ns": lat,
+        "chain_bound_ms": steps * lat * 1e-6,
     }
-    if steps:
-        lat = step_latency_ns(torch, ops_dtype, adds)
-        out["step_latency_ns"] = lat
-        out["chain_bound_ms"] = steps * lat * 1e-6
+    # the profiler's device time, or the events' where it gave none
+    out["chain_share"] = out["chain_bound_ms"] / (out["device_ms"]
+                                                  or out["ms"])
     return out
 
 
@@ -243,11 +279,33 @@ def count_torch_calls(torch, fn):
     return out, counter.calls
 
 
+def kernel_times(torch, name, args, kwargs):
+    """Device ms (torch.profiler) and event ms of the wrapper ``name`` on
+    recorded card arguments, and a digest of its output."""
+    import hashlib
+
+    from world_tpu_torch.tools import ola_bench as bench
+
+    kernel = _wrappers(name)[0]
+
+    def run():
+        return kernel(*args, **kwargs)
+
+    out = run()
+    shape = [list(a.shape) for a in args if hasattr(a, "shape")]
+    return {"kernel": name, "what": _work(name, args)[-1], "shape": shape,
+            "device_ms": bench.device_ms(torch, run),
+            "ms": bench.event_ms(torch, run),
+            "digest": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
                     help="checkout to import world_tpu_torch from")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--kernels", action="store_true",
+                    help="also time the kernels on the calls recorded")
     ap.add_argument("--out", default=None, help="also append lines here")
     args = ap.parse_args(argv)
     import torch
@@ -266,6 +324,12 @@ def main(argv=None):
 
     card = bench.card_name()
     with open(args.out, "a") if args.out else contextlib.nullcontext() as f:
+        def emit(**fields):
+            line = json.dumps({"root": root, "card": card, **fields})
+            print(line, flush=True)
+            if f:
+                f.write(line + "\n")
+
         for gold, fs in (("goldens", 22050), ("goldens_fs48", 48000)):
             x = np.fromfile(REPO / "tests" / gold / "x.f64")
 
@@ -274,7 +338,9 @@ def main(argv=None):
                 torch.cuda.synchronize()
                 return y
 
-            run()
+            recorded = {}
+            with recording(recorded):
+                run()
             walls = []
             for _ in range(args.reps):
                 t0 = time.perf_counter()
@@ -282,14 +348,24 @@ def main(argv=None):
                 walls.append(time.perf_counter() - t0)
             _, calls = count_torch_calls(torch, run)
             wall = float(np.median(walls))
-            line = json.dumps({
-                "root": root, "card": card, "case": "analyze_synthesize",
-                "fs": fs, "audio_s": len(x) / fs, "wall_s": walls,
-                "wall_s_median": wall, "rtf": len(x) / fs / wall,
-                "torch_calls": calls})
-            print(line, flush=True)
-            if f:
-                f.write(line + "\n")
+            emit(case="analyze_synthesize", fs=fs, audio_s=len(x) / fs,
+                 wall_s=walls, wall_s_median=wall, rtf=len(x) / fs / wall,
+                 torch_calls=calls)
+            if not args.kernels:
+                continue
+            gains = np.linspace(0.5, 1.5, 16)[:, None]
+            xb = torch.as_tensor(x[None] * gains, device="cuda")
+            step = W.make_batch_step(fs, xb.shape[1], rng_mode="exact",
+                                     f0_method="harvest", device="cuda")
+            batch = {}
+            with recording(batch):
+                step(xb)
+            for case, rec in (("analyze_synthesize", recorded),
+                              ("f64_exact_step16", batch)):
+                for name in ("iir_zero_phase", "randn_span"):
+                    for i, (a, kw) in enumerate(rec.get(name, [])):
+                        emit(case=case, fs=fs, call=i,
+                             **kernel_times(torch, name, a, kw))
     return 0
 
 

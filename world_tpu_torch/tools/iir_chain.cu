@@ -40,6 +40,22 @@ __global__ void iir_chain_kernel(T* out, long long n, T c, T d) {
   *out = acc;
 }
 
+__global__ void xorshift_chain_kernel(unsigned* out, long long n,
+                                      uint4 s) {
+  unsigned x = s.x, y = s.y, z = s.z, w = s.w, acc = 0u;
+#pragma unroll 12
+  for (long long i = 0; i < n; ++i) {
+    const unsigned t = x ^ (x << 11);
+    x = y;
+    y = z;
+    z = w;
+    w = (w ^ (w >> 19)) ^ (t ^ (t >> 8));
+    acc += w >> 4;
+  }
+  out[0] = w;
+  out[1] = acc;
+}
+
 template <typename T>
 int launch(int adds, void* out, long long n, double c, double d,
            cudaStream_t s) {
@@ -64,4 +80,14 @@ extern "C" int iir_chain_launch(int elt_bytes, int adds, void* out,
   if (elt_bytes == 4) return launch<float>(adds, out, n, c, d, s);
   if (elt_bytes == 8) return launch<double>(adds, out, n, c, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One block of one thread, n xorshift128 steps from the reference's seed;
+// out: two 32-bit words (the last w and the sum of w >> 4).  Returns the
+// cudaError_t of the launch.
+extern "C" int xorshift_chain_launch(void* out, long long n, void* stream) {
+  xorshift_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(out), n,
+      make_uint4(123456789u, 362436069u, 521288629u, 88675123u));
+  return static_cast<int>(cudaGetLastError());
 }
