@@ -160,7 +160,8 @@ Then the kernels summary line (ragged, scan, contour and state-scan
 launches summed over the four batch runs, the cli_* phases and the mesh
 phases, general launches over the streaming, long-form and cli_*
 phases, iir_zero_phase and randn_span launches over exact_path and the
-cli_* phases),
+cli_* phases; lti_state_scan's entry also names longform_48k's 3-state
+case beside main_22k's),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -964,17 +965,11 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     from world_tpu_torch.models import codec
     from world_tpu_torch.parallel import analyze_long, longform
     from world_tpu_torch.tools import iir_bench
-    from world_tpu_torch.tools.contour_bench import recording
+    from world_tpu_torch.tools.contour_bench import longform_int16, recording
 
     t_phase = time.perf_counter()
-    get, _ = load_goldens("goldens_fs48")
     fs = 48000
-    x48 = get("x")
-    reps = int(np.ceil(seconds * fs / len(x48)))
-    base = np.tile(x48, reps)[: int(seconds * fs)]
-    rng = np.random.default_rng(20261016)
-    scale = 0.4 + 0.4 * rng.random()
-    xi = (np.clip(base * scale, -0.999, 0.999) * 32767).astype(np.int16)
+    xi = longform_int16(seconds, fs)
     kw = dict(chunk_seconds=6.25, f0_method="harvest", device=dev)
     if dev != "cpu":
         torch.cuda.synchronize()
@@ -2181,7 +2176,10 @@ def main():
                   source="world_tpu_torch/csrc/iir.cu",
                   replaces="world_tpu/ops/matlab.py:167-187"),
              chain_bound_ms=iirs["main_22k/lti_state_scan/S3"][
-                 "chain_bound_ms"]),
+                 "chain_bound_ms"],
+             longform_48k={k: iirs["longform_48k/lti_state_scan/S3"][k]
+                           for k in ("shape", "device_ms", "ms",
+                                     "bound_ms", "chain_bound_ms")}),
         dict(line("randn_span", iirs["exact_22k/randn_span/0"],
                   path_launches("randn_span"),
                   source="world_tpu_torch/csrc/xorshift.cu",

@@ -120,6 +120,7 @@ def test_shard_utterances():
 
 _WORKER = r"""
 import json, sys
+import torch.distributed as dist
 sys.path.insert(0, sys.argv[1])
 from world_tpu_torch.utils import distributed
 rank = int(sys.argv[3])
@@ -127,7 +128,9 @@ distributed.initialize(sys.argv[2], 2, rank, device="cpu")
 m = distributed.allreduce_metrics(
     {"frames": 10 * (rank + 1), "audio_seconds": 0.25, "loader": "native"})
 print(json.dumps({"metrics": m,
-                  "shard": distributed.shard_utterances(range(5))}))
+                  "shard": distributed.shard_utterances(range(5))}),
+      flush=True)
+dist.destroy_process_group()    # exiting inside the group can abort gloo
 """
 
 

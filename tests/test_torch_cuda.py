@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA card: the OLA kernel in both
 modes, at every tile, the scan kernel, the contour-walk kernels, the
-IIR kernels (iir_zero_phase, lti_state_scan; the zero-phase kernel at
-its chunk edges) and the RNG span kernel (randn_span, at
+IIR kernels (iir_zero_phase, lti_state_scan; each at its chunk
+edges) and the RNG span kernel (randn_span, at
 lane counts about a warp and the card's warps) against their plain versions
 (torch.equal), IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
@@ -555,15 +555,24 @@ def test_lti_state_scan_kernel_matches_plain(cuda, dtype):
     the smoothing's 4-state tables at the blocks a pass has at 22.05 kHz
     (137), 48 kHz (263) and in a long-form chunk (2,344), in 1 and 16
     lanes (1,616 for the smoothing's sections), with 1 and 129 blocks
-    too."""
+    too; and across the kernel's edges: 16 lanes (one a block) at 255-257
+    and 511-513 blocks (a ring chunk holds 256 float64 or 512 float32
+    blocks of one lane), 1,616 lanes (several a block, fewer blocks a
+    chunk) at every count from 1 to 40 blocks, SMs + 1 and 2 x SMs + 1
+    lanes (a last block of one lane) and 200 lanes of 300 blocks (more
+    lanes than SMs, long rows)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edges = ([(16, n) for n in (255, 256, 257, 511, 512, 513)]
+             + [(1616, n) for n in range(1, 41)]
+             + [(sms + 1, 40), (2 * sms + 1, 40), (200, 300)])
     for S, AL in ((3, matlab._decimate_block_tables(2, 128)[3]),
                   (4, port_hc._biquad_tables()[3])):
         al = torch.as_tensor(AL, dtype=dt, device=cuda)
-        for lanes, nblk in ((1, 1), (16, 129), (1, 137), (16, 137),
-                            (16, 263), (16, 2344), (1616, 14)):
+        for lanes, nblk in [(1, 1), (16, 129), (1, 137), (16, 137),
+                            (16, 263), (16, 2344), (1616, 14)] + edges:
             p = torch.randn((lanes, nblk, S), generator=gen, dtype=dt,
                             device=cuda)
             check_iir("lti_state_scan", p, al)

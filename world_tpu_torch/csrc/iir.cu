@@ -23,7 +23,8 @@
 // in the port: states[j] = s, then s = AL s + p[j], from s = 0.  Row i of
 // AL s + p[j] is ((s0*AL[i,0] + s1*AL[i,1]) + ...) + p[j,i], the order of
 // the plain version (world_tpu_torch/ops/iir.py: lti_state_scan_plain).
-// One thread walks one lane (kThreads lanes a block).
+// Its chain thread and helpers split the work as the zero-phase kernel's
+// do (the state-scan design, below).
 //
 // Bound: the chain.  A lane is one dependent sequence: per sample, through
 // w0, a multiply and three adds (decimate: 16.35 ns on the H100), through
@@ -67,12 +68,48 @@
 // Shared memory: 28.7 KB a block; 168 registers, no spills.  On the H100
 // (NVIDIA H100 80GB HBM3, 700 W) a sample takes ~20 ns of decimate's
 // 16.35 ns chain (world_tpu_torch/tools/iir_bench.py).
+//
+// State-scan design.  The same 128 threads: thread t < L of warp 0 walks
+// lane t of the block's L lanes, and only that: per block of the row, S
+// rows of S products and S adds, reading the block's p as one vector
+// (a Quad, S values padded to four) and writing the pre-block state as
+// one.  The chain keeps AL and s in registers and reads p from shared
+// memory kScanGroup blocks at a time, the next group's while the current
+// one steps (two register groups in turn, as run_chain).  Warps 1-3, the
+// helpers, copy each lane's p two chunks ahead into a ring of three
+// chunk buffers (cp.async, consecutive threads on consecutive elements
+// of the lane's contiguous row: coalesced) and write the last chunk's
+// states from a ring of two, coalesced the same way; one __syncthreads a
+// chunk.  A chunk buffer is kScanChunkBytes: 512 float32 or 256 float64
+// Quads, `steps` blocks of each lane (rounded down to pairs of register
+// groups), lane l's at Quads l*pitch onwards.  So a chain thread reads
+// and writes consecutive Quads at offsets fixed at compile time (a lane
+// stride known only at run time, blocks interleaved lane by lane, took
+// 16-29% longer on the recorded 3-state rows on the H100, NVIDIA H100
+// 80GB HBM3 at 700 W, world_tpu_torch/tools/iir_bench.py); with several
+// lanes a block, pitch = steps + 1 staggers the lanes' Quads over the
+// shared-memory banks.  Rows of any length run through the ring.
+// Lanes to blocks: L = ceil(lanes / SMs), at most 16.  While the lanes
+// fit on the SMs (every recorded input: the float32 decimation's and
+// smoothing's 16 lanes) each lane has a block, its chain an SM and a
+// scheduler to itself; more lanes (a batch of more rows than SMs) share
+// a block's chain warp, whose threads step in lock step, so a launch is
+// one wave of blocks until lanes exceed 16 x SMs.  On the H100 that
+// layout took 0.0045 ms at 1,616 lanes of 14 blocks against one lane a
+// block's 0.0053, and 0.0078 at 200 lanes of 300 against its 0.0074.
+// The chain thread executes S*S multiplies, S*S adds and two vector
+// accesses a block, not only the S + 1 dependent operations of the
+// chain: the kernel takes ~19.1 ns a block on long rows (16 x 2,682
+// blocks in 0.0513 ms) against the chain's 8.53; what holds the rest is
+// not measured.
+// Shared memory: 40,960 bytes a block (5 chunk buffers); 52-87 registers
+// in float32 and 76-124 in float64, no spills.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include <atomic>
 
-constexpr int kThreads = 128;   // lanes a block of the state scan
+namespace {
 
 // The zero-phase kernel's shape.
 constexpr int kZpThreads = 128;   // thread 0: the chain; warps 1-3: helpers
@@ -88,6 +125,25 @@ constexpr int kOut = kPad + kChunk;
 constexpr int kZpDoubles = 3 * kChunk + 2 * kChunk + 2 * kOut;
 static_assert(kChunk % (2 * kGroup) == 0, "chunk shape");
 
+// The state scan's shape (the same 128 threads: warp 0's first lanes walk
+// the chains, warps 1-3 are the helpers).
+constexpr int kScanChunkBytes = 8192;  // a chunk buffer
+constexpr int kScanGroup = 4;          // blocks the chain reads ahead
+constexpr int kScanMaxLanes = 16;      // lanes a block at most (warp 0's)
+constexpr int kScanIn = 3;             // input ring: chunks
+constexpr int kScanOut = 2;            // output ring: chunks
+
+// A block's input or state, S <= 4 values padded to one 16-byte (float)
+// or 32-byte (double) vector access.
+template <typename T>
+struct __align__(4 * sizeof(T)) Quad {
+  T v[4];
+};
+template <typename T>
+constexpr int kScanQuads = kScanChunkBytes / static_cast<int>(sizeof(Quad<T>));
+static_assert(kScanQuads<double> / kScanMaxLanes - 1 >= 2 * kScanGroup,
+              "a chunk holds a pair of register groups of every lane");
+
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
@@ -101,10 +157,11 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-__device__ __forceinline__ void copy_async8(double* dst, const double* src) {
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-               :: "r"(d), "l"(src) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
 }
 __device__ __forceinline__ void commit_copies() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -250,7 +307,7 @@ __device__ void zero_phase_pass(F& f, const double* src, double* dst,
       const int k = h + i * kHelpers;
       if (k >= C) break;
       if (c * C + k < n) {
-        copy_async8(r + k, src + at(c, k));
+        copy_async(r + k, src + at(c, k));
       } else {
         r[k] = 0.0;
       }
@@ -333,48 +390,179 @@ int launch_zero_phase(const double* x, double* y, int lanes, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The state scan's chain: AL in registers, the state s.  step() writes
+// the pre-block state to *out (its slots past S zero), then s = AL s + p,
+// row i ((s0*AL[i,0] + s1*AL[i,1]) + ...) + p[i].
 template <typename T, int S>
-__global__ void __launch_bounds__(kThreads)
-state_scan_kernel(const T* __restrict__ p, const T* __restrict__ al,
-                  T* __restrict__ states, int lanes, int nblk) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
-  if (lane >= lanes) return;
+struct StateChain {
   T a[S][S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) a[i][k] = al[i * S + k];
-  }
-  const long long row = static_cast<long long>(lane) * nblk * S;
-  const T* pr = p + row;
-  T* sr = states + row;
   T s[S];
+  __device__ explicit StateChain(const T* al) {
 #pragma unroll
-  for (int i = 0; i < S; ++i) s[i] = T(0);
-#pragma unroll 4
-  for (int j = 0; j < nblk; ++j) {
+    for (int i = 0; i < S; ++i) {
+      s[i] = T(0);
+#pragma unroll
+      for (int k = 0; k < S; ++k) a[i][k] = al[i * S + k];
+    }
+  }
+  __device__ __forceinline__ void step(const Quad<T>& p, Quad<T>* out) {
+    Quad<T> pre;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pre.v[i] = i < S ? s[i] : T(0);
+    *out = pre;
     T ns[S];
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      sr[j * S + i] = s[i];
       T acc = mul_rn(s[0], a[i][0]);
 #pragma unroll
       for (int k = 1; k < S; ++k) acc = add_rn(acc, mul_rn(s[k], a[i][k]));
-      ns[i] = add_rn(acc, pr[j * S + i]);
+      ns[i] = add_rn(acc, p.v[i]);
     }
 #pragma unroll
     for (int i = 0; i < S; ++i) s[i] = ns[i];
   }
+};
+
+template <typename T>
+__device__ __forceinline__ void read_quads(Quad<T> (&v)[kScanGroup],
+                                           const Quad<T>* in) {
+#pragma unroll
+  for (int k = 0; k < kScanGroup; ++k) v[k] = in[k];
 }
 
-int blocks(int lanes) { return (lanes + kThreads - 1) / kThreads; }
+template <typename T, int S>
+__device__ __forceinline__ void step_quads(StateChain<T, S>& f,
+                                           const Quad<T> (&v)[kScanGroup],
+                                           Quad<T>* out) {
+#pragma unroll
+  for (int k = 0; k < kScanGroup; ++k) f.step(v[k], out + k);
+}
 
+// The chain over m blocks of one chunk: block k's input at in[k], its
+// pre-block state to out[k].  Two register groups in turn, as run_chain;
+// a group past m steps on slots nobody reads (a chunk holds a multiple
+// of 2 * kScanGroup blocks, and only a row's last chunk is short).
+template <typename T, int S>
+__device__ __forceinline__ void scan_chunk(StateChain<T, S>& f,
+                                           const Quad<T>* in, Quad<T>* out,
+                                           int m) {
+  constexpr int G = kScanGroup;
+  Quad<T> a[G], b[G];
+  read_quads(a, in);
+  for (int g = 0; g < m; g += 2 * G) {
+    if (g + G < m) read_quads(b, in + g + G);
+    step_quads(f, a, out + g);
+    if (g + G >= m) break;
+    if (g + 2 * G < m) read_quads(a, in + g + 2 * G);
+    step_quads(f, b, out + g + G);
+  }
+}
+
+// A block walks L lanes, `steps` blocks of each a chunk, lane l's from
+// Quad l*pitch of a chunk buffer (see the design note).  Phase c:
+// threads 0..L-1 of warp 0 walk chunk c; the helpers emit chunk c-1,
+// start copying chunk c+2 and wait for chunk c+1.
+template <typename T, int S>
+__global__ void __launch_bounds__(kZpThreads)
+state_scan_kernel(const T* __restrict__ p, const T* __restrict__ al,
+                  T* __restrict__ states, int lanes, int nblk,
+                  int L, int steps, int pitch) {
+  constexpr int Q = kScanQuads<T>;
+  __shared__ Quad<T> smem[(kScanIn + kScanOut) * Q];
+  Quad<T>* in = smem;                   // chunk c in in[(c % 3) * Q]
+  Quad<T>* out = smem + kScanIn * Q;    // chunk c in out[(c % 2) * Q]
+  const int lane0 = static_cast<int>(blockIdx.x) * L;
+  const int nl = min(L, lanes - lane0);
+  const int chunks = (nblk + steps - 1) / steps;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int h = tid - 32;               // helper index (warps 1-3)
+  const long long row = static_cast<long long>(nblk) * S;
+
+  auto span = [&](int c) { return min(steps, nblk - c * steps); };
+  auto load = [&](int c) {              // chunk c of every lane, coalesced
+    Quad<T>* r = in + (c % kScanIn) * Q;
+    const int n = span(c) * S;
+    for (int l = 0; l < nl; ++l) {
+      const T* src = p + (lane0 + l) * row + static_cast<long long>(c) *
+                         steps * S;
+      for (int e = h; e < n; e += kHelpers) {
+        const int j = e / S;
+        copy_async(&r[l * pitch + j].v[e - j * S], src + e);
+      }
+    }
+    commit_copies();
+  };
+  auto emit = [&](int c) {              // chunk c's states, coalesced
+    const Quad<T>* o = out + (c % kScanOut) * Q;
+    const int n = span(c) * S;
+    for (int l = 0; l < nl; ++l) {
+      T* dst = states + (lane0 + l) * row + static_cast<long long>(c) *
+                        steps * S;
+      for (int e = h; e < n; e += kHelpers) {
+        const int j = e / S;
+        dst[e] = o[l * pitch + j].v[e - j * S];
+      }
+    }
+  };
+
+  StateChain<T, S> f(al);
+  if (h >= 0) {
+    load(0);
+    if (chunks > 1) load(1); else commit_copies();
+    wait_all_but_last();
+  }
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    if (tid < nl) {
+      scan_chunk(f, in + (c % kScanIn) * Q + tid * pitch,
+                 out + (c % kScanOut) * Q + tid * pitch, span(c));
+    } else if (h >= 0) {
+      if (c > 0) emit(c - 1);
+      if (c + 2 < chunks) load(c + 2); else commit_copies();
+      wait_all_but_last();              // chunk c + 1 has landed
+    }
+    __syncthreads();
+  }
+  if (h >= 0) emit(chunks - 1);
+}
+
+// The current device's SM count, cached once a device (0 until then), as
+// csrc/xorshift.cu caches its own.
+constexpr int kMaxDevices = 64;
+std::atomic<int> sms_of[kMaxDevices];
+
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (*sms > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) sms_of[dev].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// Lanes a block: spread the lanes over the card's SMs, one a block while
+// they fit, then up to kScanMaxLanes (warp 0's threads) a block.  Blocks
+// a chunk: the ring's chunk buffer over those lanes, in whole pairs of
+// register groups, with one Quad of padding a lane where there are
+// several.
 template <typename T, int S>
 int launch_scan(const void* p, const void* al, void* states, int lanes,
                 int nblk, cudaStream_t stream) {
-  state_scan_kernel<T, S><<<blocks(lanes), kThreads, 0, stream>>>(
+  int sms = 0;
+  const cudaError_t rc = sm_count(&sms);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int spread = (lanes + sms - 1) / sms;
+  const int per_block = spread < kScanMaxLanes ? spread : kScanMaxLanes;
+  const int pad = per_block > 1 ? 1 : 0;
+  const int steps = (kScanQuads<T> / per_block - pad) / (2 * kScanGroup) *
+                    (2 * kScanGroup);
+  const int grid = (lanes + per_block - 1) / per_block;
+  state_scan_kernel<T, S><<<grid, kZpThreads, 0, stream>>>(
       static_cast<const T*>(p), static_cast<const T*>(al),
-      static_cast<T*>(states), lanes, nblk);
+      static_cast<T*>(states), lanes, nblk, per_block, steps, steps + pad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,8 +19,9 @@ The JAX package runs these as device loops (lax.scan in
 world_tpu/ops/matlab.py:184 and :226 and
 world_tpu/models/harvest_contour.py:365); the plain versions are the
 port's Python loops over samples and blocks, which launch kernels at
-every step.  Each kernel runs a whole lane in one thread, all lanes in
-one launch; csrc/iir.cu describes its design.
+every step.  Each kernel walks a whole lane's chain in one thread while
+other threads move its data, all lanes in one launch; csrc/iir.cu
+describes the designs.
 
 On a CUDA tensor each wrapper launches its kernel (always; there is no
 fallback): a build or launch failure raises.  On a CPU tensor it runs the

@@ -233,10 +233,24 @@ def recording(recorded):
             setattr(module, name, real)
 
 
-def record_inputs(torch):
-    """{case: (wrapper name, args, kwargs)} on the card: the batch steps'
-    calls (dio_22k, harvest_22k, dio_48k, harvest_48k) and the long-form
-    batch's (harvest_longform)."""
+def longform_int16(seconds=300.0, fs=48000, seed=20261016):
+    """chip_smoke.py's longform_48k signal (bench.py:217-225): the 48 kHz
+    golden utterance tiled to ``seconds``, as int16 at a level in 0.4-0.8
+    drawn from ``seed``."""
+    x48 = np.fromfile(REPO / "tests" / "goldens_fs48" / "x.f64")
+    n = int(seconds * fs)
+    base = np.tile(x48, -(-n // len(x48)))[:n]
+    scale = 0.4 + 0.4 * np.random.default_rng(seed).random()
+    return (np.clip(base * scale, -0.999, 0.999) * 32767).astype(np.int16)
+
+
+def path_calls(torch, record, methods=("dio", "harvest")):
+    """{case: what the context ``record(recorded)`` (this module's
+    recording, or iir_bench's) recorded} on the card, for the float32
+    batch steps of 16 rows of the golden utterances at gains 0.5-1.5
+    (``{method}_22k``, ``{method}_48k``; no synthesis) and, where Harvest
+    is among ``methods``, analyze_long on longform_int16()
+    (harvest_longform)."""
     from world_tpu_torch.parallel import analyze_long, pipeline
 
     cases = {}
@@ -245,26 +259,31 @@ def record_inputs(torch):
         x = np.fromfile(REPO / "tests" / gold / "x.f64")
         xb = (x[None] * np.linspace(0.5, 1.5, 16)[:, None]).astype(
             np.float32)
-        for method, name in (("dio", "dio_fix_walks"),
-                             ("harvest", "harvest_fix_step3")):
-            with recording({}) as rec:
+        for method in methods:
+            with record({}) as rec:
                 pipeline.make_batch_step(fs, xb.shape[1], f0_method=method,
                                          with_synthesis=False,
                                          device="cuda")(xb)
-            cases[f"{method}_{tag}"] = (name, *rec[name])
-    # chip_smoke.py's longform_48k signal.
-    fs = 48000
-    x48 = np.fromfile(REPO / "tests" / "goldens_fs48" / "x.f64")
-    n = 300 * fs
-    base = np.tile(x48, int(np.ceil(n / len(x48))))[:n]
-    scale = 0.4 + 0.4 * np.random.default_rng(20261016).random()
-    xi = (np.clip(base * scale, -0.999, 0.999) * 32767).astype(np.int16)
-    with recording({}) as rec:
-        analyze_long(xi, fs, chunk_seconds=6.25, f0_method="harvest",
-                     codec_dims=64, batch_lanes=16, device="cuda")
-    cases["harvest_longform"] = ("harvest_fix_step3",
-                                 *rec["harvest_fix_step3"])
+            cases[f"{method}_{tag}"] = rec
+    if "harvest" in methods:
+        with record({}) as rec:
+            analyze_long(longform_int16(), 48000, chunk_seconds=6.25,
+                         f0_method="harvest", codec_dims=64,
+                         batch_lanes=16, device="cuda")
+        cases["harvest_longform"] = rec
     torch.cuda.synchronize()
+    return cases
+
+
+def record_inputs(torch):
+    """{case: (wrapper name, args, kwargs)} on the card: the calls of
+    path_calls' batch steps (dio_22k, harvest_22k, dio_48k, harvest_48k)
+    and long-form batch (harvest_longform)."""
+    cases = {}
+    for case, rec in path_calls(torch, recording).items():
+        name = "dio_fix_walks" if case.startswith("dio") else (
+            "harvest_fix_step3")
+        cases[case] = (name, *rec[name])
     return cases
 
 

@@ -13,11 +13,15 @@ calls after one discarded, the real-time factor of their median, and the
 top-level torch calls of one call (a TorchFunctionMode's count), one
 JSON line a rate.  ``--kernels`` also times iir_zero_phase and
 randn_span on every call those runs and one float64 exact Harvest batch
-step of 16 rows at each rate make (``kernel_times``: device ms, event
-ms, the output's digest), one line a call.  ``--root`` imports
-world_tpu_torch from another checkout (for example the parent commit,
-unpacked with ``git archive``), so both are timed by the same code on the
-same inputs, and equal digests show equal outputs.
+step of 16 rows at each rate make, and lti_state_scan on the first call
+of each state size in the float32 Harvest paths of
+contour_bench.path_calls (the batch step of 16 rows at each rate, and
+chip_smoke.py's longform_48k signal through analyze_long) and on
+LAYOUT_CASES (``kernel_times``: device ms, event ms, the output's
+digest), one line a call.  ``--root`` imports world_tpu_torch from
+another checkout (for example the parent commit, unpacked with ``git
+archive``), so both are timed by the same code on the same inputs, and
+equal digests show equal outputs.
 
 chip_smoke.py records each wrapper's arguments on the paths that call it
 (``recording``) and hands them to ``measure``, which checks the kernel
@@ -73,6 +77,11 @@ CHAIN_ADDS = {"decimate": 3, "smooth": 2}
 # Operations a sample of one pass: (multiplies + adds).
 SAMPLE_OPS = {"decimate": 13, "smooth": 9}
 RECORD_CALLS = 8        # calls of each wrapper kept per recording
+SEED = 20261016         # LAYOUT_CASES' inputs
+# (lanes, blocks, S) beyond the SM count, where the state-scan kernel puts
+# several lanes in a block: the card test's smoothing sections and 200
+# long lanes (random p from SEED, the real tables).
+LAYOUT_CASES = ((1616, 14, 4), (200, 300, 3))
 
 
 def build_chain():
@@ -299,6 +308,21 @@ def kernel_times(torch, name, args, kwargs):
             "digest": hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()}
 
 
+def layout_args(torch, lanes, nblk, S):
+    """(p, AL) on the card: p (lanes, nblk, S) float32 from SEED, AL
+    decimation's 3-state table or the smoothing's 4-state one."""
+    from world_tpu_torch.models import harvest_contour
+    from world_tpu_torch.ops import matlab
+
+    AL = (matlab._decimate_block_tables(2, 128) if S == 3
+          else harvest_contour._biquad_tables())[3]
+    rs = np.random.default_rng(SEED)
+    p = rs.standard_normal((lanes, nblk, S)).astype(np.float32)
+    return (torch.as_tensor(p, device="cuda"),
+            torch.as_tensor(np.asarray(AL), dtype=torch.float32,
+                            device="cuda"))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None,
@@ -366,6 +390,22 @@ def main(argv=None):
                     for i, (a, kw) in enumerate(rec.get(name, [])):
                         emit(case=case, fs=fs, call=i,
                              **kernel_times(torch, name, a, kw))
+        if not args.kernels:
+            return 0
+        import contour_bench    # beside this script: --root may predate it
+
+        for case, rec in contour_bench.path_calls(torch, recording,
+                                                  ("harvest",)).items():
+            first = {}
+            for a, kw in rec.get("lti_state_scan", []):
+                first.setdefault(f"S{a[1].shape[0]}", (a, kw))
+            for key, (a, kw) in sorted(first.items()):
+                emit(case=case, call=key,
+                     **kernel_times(torch, "lti_state_scan", a, kw))
+        for lanes, nblk, S in LAYOUT_CASES:
+            emit(case="layout", call=f"S{S}", **kernel_times(
+                torch, "lti_state_scan", layout_args(torch, lanes, nblk, S),
+                {}))
     return 0
 
 
