@@ -13,8 +13,9 @@ Phases, one JSON line each, in this order:
   main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
             in float32 fast mode, gated against the C++ goldens;
             launches of every kernel (the ragged mode, the scan,
-            Harvest's contour kernel and the block-LTI state scan must
-            have launched); stage ms
+            Harvest's refinement and contour kernels and the block-LTI
+            state scan must have launched, the refinement once a step);
+            stage ms
   main_48k  the same at 48 kHz (fft 2048)
   dio_22k   the JAX package's default step, make_batch_step(22050, ...,
             f0_method="dio", codec_dims=64): Dio -> StoneMask ->
@@ -147,18 +148,28 @@ Phases, one JSON line each, in this order:
             latency of one, world_tpu_torch/tools/iir_chain.cu: the
             recurrences' steps, and for randn_span the 12 xorshift steps
             of one draw) and the kernel's share of it
+  refine_kernel  Harvest's float32 refinement kernel (harvest_refine)
+            on the arguments its wrapper received in main_22k, main_48k
+            and the first batch of longform_48k, against its plain
+            version at world_tpu_torch/tools/refine_bench.py's GATES
+            (surviving masks equal but for scores within 1e-4 of 2.5 or
+            F0s of a range limit, F0 relative <= 1e-5, score relative <=
+            1e-3), with its device ms (torch.profiler), the plain
+            version's ms, the operations and bytes bounds, the share of
+            the bound and its launches on the paths
   stage_ops the top-level torch ops each stage of one batch step issues
             (world_tpu_torch/tools/profile_step.py: stage_ops) for the
             four batch steps and the float64 exact Harvest step at 22.05
             kHz, and the kernels' launches in it (STAGE_OPS_LIMITS):
             dio.fix at most 50 ops and one dio_fix_walks launch,
             harvest.contour at most 350 (400 in float64) and one
-            harvest_fix_step3 launch, harvest.decimate at most 50, with
+            harvest_fix_step3 launch, harvest.refine at most 60 and one
+            harvest_refine launch in float32, harvest.decimate at most 50, with
             four lti_state_scan launches a float32 Harvest step and two
             iir_zero_phase launches a float64 one
-Then the kernels summary line (ragged, scan, contour and state-scan
-launches summed over the four batch runs, the cli_* phases and the mesh
-phases, general launches over the streaming, long-form and cli_*
+Then the kernels summary line (ragged, scan, contour, refinement and
+state-scan launches summed over the four batch runs, the cli_* phases
+and the mesh phases, general launches over the streaming, long-form and cli_*
 phases, iir_zero_phase and randn_span launches over exact_path and the
 cli_* phases; lti_state_scan's entry also names longform_48k's 3-state
 case beside main_22k's),
@@ -254,12 +265,13 @@ def drive(torch, ola, step, fresh):
     steps, the counts read, and three stage-timed steps.  Returns (the
     last timed step's outputs, step seconds, launches, stage ms,
     recorded inputs)."""
-    from world_tpu_torch.tools import iir_bench
+    from world_tpu_torch.tools import iir_bench, refine_bench
     from world_tpu_torch.tools.contour_bench import recording
 
     recorded = {}
     with recording_ola(recorded), recording_scan(recorded), \
-            recording(recorded), iir_bench.recording(recorded):
+            recording(recorded), iir_bench.recording(recorded), \
+            refine_bench.recording(recorded):
         step(fresh())                               # warm-up
     torch.cuda.synchronize()
     for k in all_kernels(ola):
@@ -329,6 +341,9 @@ CONTOUR_INPUTS = {}
 # The IIR and RNG span wrappers' calls in those phases:
 # IIR_INPUTS[phase][wrapper name] = [(args, kwargs), ...].
 IIR_INPUTS = {}
+# The refinement wrapper's first call there:
+# REFINE_INPUTS[phase]["harvest_refine"] = (args, kwargs).
+REFINE_INPUTS = {}
 
 
 def batch_maker(torch, x, seed=20261016):
@@ -392,6 +407,9 @@ def main_path(torch, W, ola, get, scalars, tag, card):
     for k in path_kernels(ola, "harvest"):
         check(launches[k.__name__] > 0,
               f"{tag}: kernel {k.__name__} never launched on the main path")
+    check(launches["harvest_refine"] == len(times),
+          f"{tag}: harvest_refine launched {launches['harvest_refine']} "
+          f"times in {len(times)} steps")
     return result, recorded
 
 
@@ -964,7 +982,7 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
     """300 s of 48 kHz int16 (bench.py:217-225) through analyze_long."""
     from world_tpu_torch.models import codec
     from world_tpu_torch.parallel import analyze_long, longform
-    from world_tpu_torch.tools import iir_bench
+    from world_tpu_torch.tools import iir_bench, refine_bench
     from world_tpu_torch.tools.contour_bench import longform_int16, recording
 
     t_phase = time.perf_counter()
@@ -992,7 +1010,9 @@ def longform_48k(torch, W, dev, seconds=300.0, lanes=LONGFORM_LANES):
         t0 = time.perf_counter()
         with recording(CONTOUR_INPUTS.setdefault("longform_48k", {})), \
                 iir_bench.recording(IIR_INPUTS.setdefault("longform_48k",
-                                                          {})):
+                                                          {})), \
+                refine_bench.recording(REFINE_INPUTS.setdefault(
+                    "longform_48k", {})):
             tp, f0, sp, ap = analyze_long(xi, fs, codec_dims=CODEC_DIMS,
                                           batch_lanes=lanes, **kw)
         wall = time.perf_counter() - t0
@@ -1779,27 +1799,30 @@ def scaling_phase(torch, sizes=(1, 2)):
 
 def all_kernels(ola):
     """Every kernel wrapper of the port (each counts its launches)."""
-    from world_tpu_torch.ops import contour, iir, rng, scan
+    from world_tpu_torch.ops import contour, iir, refine, rng, scan
 
     return [ola.ola_accumulate, ola.ola_accumulate_ragged, scan.cumsum_rows,
             contour.dio_fix_walks, contour.harvest_fix_step3,
-            iir.iir_zero_phase, iir.lti_state_scan, rng.randn_span]
+            iir.iir_zero_phase, iir.lti_state_scan, rng.randn_span,
+            refine.harvest_refine]
 
 
 def path_kernels(ola, f0_method, synthesis=True, exact=False):
     """The wrappers a step with ``f0_method`` must launch: the F0 stage's
     contour kernel; Harvest's decimation and smoothing (the state scan
     in float32, the zero-phase recurrence with ``exact``, float64 and the
-    reference RNG; Dio at its default speed 1 does not decimate); with
-    ``exact`` the RNG span; and with synthesis the scan kernel and the
-    OLA kernel's ragged mode (streaming, checked in its phases, the
-    general mode)."""
-    from world_tpu_torch.ops import contour, iir, rng, scan
+    reference RNG; Dio at its default speed 1 does not decimate) and in
+    float32 its refinement; with ``exact`` the RNG span; and with
+    synthesis the scan kernel and the OLA kernel's ragged mode
+    (streaming, checked in its phases, the general mode)."""
+    from world_tpu_torch.ops import contour, iir, refine, rng, scan
 
     kernels = [{"dio": contour.dio_fix_walks,
                 "harvest": contour.harvest_fix_step3}[f0_method]]
     if f0_method == "harvest":
         kernels.append(iir.iir_zero_phase if exact else iir.lti_state_scan)
+        if not exact:
+            kernels.append(refine.harvest_refine)
     if exact:
         kernels.append(rng.randn_span)
     return kernels + ([ola.ola_accumulate_ragged, scan.cumsum_rows]
@@ -1812,12 +1835,13 @@ CONTOUR_CASES = ("main_22k/harvest_fix_step3", "main_48k/harvest_fix_step3",
                  "cli_manip/harvest_fix_step3")
 # (F0 method, float64 exact): [(stage, most torch ops it runs, a
 # kernel, its launches in the whole step)].  A float32 Harvest step runs
-# the state scan twice in decimation and twice in the smoothing; a
-# float64 one the zero-phase recurrence once in each.
+# the state scan twice in decimation and twice in the smoothing, and the
+# refinement once; a float64 one the zero-phase recurrence once in each.
 STAGE_OPS_LIMITS = {
     ("dio", False): [("dio.fix", 50, "dio_fix_walks", 1)],
     ("harvest", False): [("harvest.contour", 350, "harvest_fix_step3", 1),
-                         ("harvest.decimate", 50, "lti_state_scan", 4)],
+                         ("harvest.decimate", 50, "lti_state_scan", 4),
+                         ("harvest.refine", 60, "harvest_refine", 1)],
     ("harvest", True): [("harvest.contour", 400, "harvest_fix_step3", 1),
                         ("harvest.decimate", 50, "iir_zero_phase", 2)]}
 
@@ -1937,6 +1961,29 @@ def iir_kernels_phase(torch, card, replays, launches):
     check(found == set(IIR_CASES),
           f"iir_kernels: recorded {sorted(found)}, not {sorted(IIR_CASES)}")
     check_cases(cases.values(), "iir_kernels")
+    return cases
+
+
+REFINE_CASES = ("main_22k", "main_48k", "longform_48k")
+
+
+def refine_kernel_phase(torch, card, replays, launches, flush):
+    """Harvest's refinement kernel on the arguments its wrapper received
+    in main_22k, main_48k and longform_48k's first batch, against its
+    plain version at refine_bench.GATES, beside ``launches``, its
+    launches on the paths (at least one)."""
+    from world_tpu_torch.tools import refine_bench
+
+    recorded = dict(REFINE_INPUTS)
+    for tag in ("main_22k", "main_48k"):
+        recorded[tag] = replays[tag]
+    cases = {tag: refine_bench.measure(torch, *recorded[tag][
+        "harvest_refine"], flush) for tag in REFINE_CASES}
+    emit("refine_kernel", card=card, launches=launches, cases=cases)
+    check(launches > 0, "refine_kernel: never launched on the paths")
+    for tag, c in cases.items():
+        check(c["within_gates"], f"refine_kernel {tag}: kernel != plain "
+              f"beyond refine_bench.GATES: {c}")
     return cases
 
 
@@ -2119,6 +2166,10 @@ def main():
     iirs = iir_kernels_phase(torch, card, replays, {
         name: path_launches(name)
         for name in ("iir_zero_phase", "lti_state_scan", "randn_span")})
+    # Harvest's float32 refinement on the arguments its wrapper received
+    # in the Harvest batch runs and longform_48k's first batch.
+    refines = refine_kernel_phase(torch, card, replays,
+                                  path_launches("harvest_refine"), flush)
     stage_ops_phase(torch, W, ola)
 
     def line(name, c, launches, source="world_tpu_torch/csrc/ola.cu",
@@ -2185,7 +2236,16 @@ def main():
                   source="world_tpu_torch/csrc/xorshift.cu",
                   replaces="world_tpu/ops/rng.py:82-102"),
              chain_bound_ms=iirs["exact_22k/randn_span/0"][
-                 "chain_bound_ms"])]}),
+                 "chain_bound_ms"]),
+        # No Pallas kernel: the JAX package's float32 refinement stage
+        # (_refine_frame_direct under _refine_all's while-loops).
+        dict(line("harvest_refine", refines["main_22k"],
+                  path_launches("harvest_refine"),
+                  source="world_tpu_torch/csrc/refine.cu",
+                  replaces="world_tpu/models/harvest.py:265-435"),
+             also_replaces="world_tpu/models/harvest.py:487-594",
+             **{f"{tag}_device_ms": refines[tag]["device_ms"]
+                for tag in ("main_48k", "longform_48k")})]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ modes, at every tile, the scan kernel, the contour-walk kernels, the
 IIR kernels (iir_zero_phase, lti_state_scan; each at its chunk
 edges) and the RNG span kernel (randn_span, at
 lane counts about a warp and the card's warps) against their plain versions
-(torch.equal), IEEE
+(torch.equal), Harvest's float32 refinement kernel (harvest_refine)
+against its plain version at refine_bench.GATES, IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
@@ -29,9 +30,10 @@ from world_tpu_torch.device import div  # noqa: E402
 from world_tpu_torch.models import dio as port_dio  # noqa: E402
 from world_tpu_torch.models import harvest_contour as port_hc  # noqa: E402
 from world_tpu_torch.ops import (  # noqa: E402
-    _cuda, contour, iir, matlab, ola, rng, scan)
+    _cuda, contour, iir, matlab, ola, refine, rng, scan)
 from world_tpu_torch.ops.ola import ola_accumulate, ola_plain  # noqa: E402
 from world_tpu_torch.parallel import pipeline  # noqa: E402
+from world_tpu_torch.tools import refine_bench  # noqa: E402
 from world_tpu_torch.tools.ola_bench import TABLE  # noqa: E402
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
@@ -958,3 +960,157 @@ def test_batched_corpus_on_card(cuda, tmp_path):
 # float32 (max abs difference; f0 in Hz, coded ap in dB): chip_smoke.py's
 # BATCH_ATOL, where their origin is given.
 CARD_BATCH_ATOL = {"f0": 1e-4, "coded_sp": 5e-4, "coded_ap": 0.04}
+
+
+# ------------------------------------------------- Harvest's refinement
+
+def refine_stage(gold, fs, rows, cuda, f0_floor=71.0):
+    """The port's float32 candidate stage on the card for ``rows`` rows of
+    the golden utterance (gains 0.5-1.5 past one row): (y, fs_dec,
+    positions, cands)."""
+    from world_tpu_torch.device import StageClock
+    from world_tpu_torch.models import harvest as port_harvest
+
+    x = np.fromfile(os.path.join(os.path.dirname(GOLDENS), gold, "x.f64"))
+    gains = np.linspace(0.5, 1.5, rows) if rows > 1 else np.ones(1)
+    xb = torch.as_tensor((x[None] * gains[:, None]).astype(np.float32),
+                         device=cuda)
+    y, fs_dec, _, pos, cands = port_harvest._candidate_stage(
+        xb, fs, f0_floor, 800.0, 40.0, int(round(fs / 8000.0)),
+        StageClock(None, cuda))
+    return y, fs_dec, pos, cands
+
+
+def hw_max_of(fs_dec, f0_floor=71.0):
+    return int(1.5 * fs_dec / (f0_floor * 0.9 * 0.9) + 1.0) + 1
+
+
+def check_refine(y, pos, cands, fs_dec, f0_floor=71.0, f0_ceil=800.0,
+                 hw_max=None):
+    """One launch of the kernel, held to the plain version on the same
+    card tensors at refine_bench.GATES."""
+    hw_max = hw_max or hw_max_of(fs_dec, f0_floor)
+    args = (y, pos, cands, fs_dec, f0_floor, f0_ceil, hw_max)
+    before = refine.harvest_refine.launches
+    got = refine.harvest_refine(*args)
+    assert refine.harvest_refine.launches == before + 1
+    want = refine.harvest_refine_plain(*args)
+    stats = refine_bench.compare(got, want, f0_floor, f0_ceil)
+    assert refine_bench.within_gates(stats), stats
+    assert stats["survivors"] > 0
+    return got, want
+
+
+@pytest.mark.parametrize("rows", [1, 16])
+@pytest.mark.parametrize("fs,gold", [(22050, "goldens"),
+                                     (48000, "goldens_fs48")])
+def test_refine_kernel_matches_plain(cuda, fs, gold, rows):
+    """At both rates, 1 and 16 rows: the (row, frame) items (794 / 701 a
+    row) exceed the card's SMs, so blocks walk several each."""
+    y, fs_dec, pos, cands = refine_stage(gold, fs, rows, cuda)
+    assert rows * cands.shape[1] > torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    check_refine(y, pos, cands, fs_dec)
+
+
+def refine_edges(cands, fs_dec):
+    """tests/test_torch_refine.py's edge cases written into the frames of
+    ``cands`` (row 0): the first and last frames, candidates at f0_floor
+    0.81 and below it (hw past hw_max), above fs / 12, an empty frame and
+    one with every slot filled."""
+    c = cands.clone()
+    n_frames, n_slots = c.shape[1:]
+    voiced = torch.nonzero((c[0] > 0).sum(1) >= 10).flatten().tolist()
+    src = c[0, voiced[len(voiced) // 2]].clone()
+    c[0, [0, n_frames - 1]] = src
+    c[0, voiced[10:42]] = 0.0
+    c[0, voiced[10:14], 1:4] = float(np.float32(71.0 * 0.9 * 0.9))
+    c[0, voiced[20:24], :2] = torch.tensor([650.0, 780.0], device=c.device)
+    c[0, voiced[30:32], 2:4] = torch.tensor([50.0, 40.0], device=c.device)
+    for f in voiced[50:52]:
+        c[0, f] = c[0, f, 0] * (1.0 + 0.002 * (torch.arange(
+            n_slots, device=c.device) - 52.0))
+    return c
+
+
+@pytest.mark.parametrize("lifted", [False, True])
+def test_refine_kernel_edges(cuda, lifted):
+    """The edge cases; ``lifted`` drops the range test (f0_floor 0,
+    f0_ceil 1e9, hw_max still the 71 Hz one), so that the pairs at and
+    past the window bound survive and their values are compared."""
+    y, fs_dec, pos, cands = refine_stage("goldens", 22050, 2, cuda)
+    c = refine_edges(cands, fs_dec)
+    if lifted:
+        got, _ = check_refine(y, pos, c, fs_dec, 0.0, 1e9,
+                              hw_max_of(fs_dec))
+    else:
+        got, _ = check_refine(y, pos, c, fs_dec)
+    voiced = torch.nonzero((cands[0] > 0).sum(1) >= 10).flatten().tolist()
+    assert (got[0][0, voiced[40:42]] == 0).all()
+
+
+def test_refine_kernel_low_floor(cuda):
+    """f0_floor 40 at 48 kHz: hw_max 372, a 2^11 phase table and ~64 KB
+    of shared memory a block (past 48 KB: opted in at launch)."""
+    y, fs_dec, pos, cands = refine_stage("goldens_fs48", 48000, 4, cuda,
+                                         f0_floor=40.0)
+    assert hw_max_of(fs_dec, 40.0) == 372
+    check_refine(y, pos, cands, fs_dec, f0_floor=40.0)
+
+
+@pytest.mark.parametrize("hw_max", [600, refine.MAX_HW])
+def test_refine_past_48k_shared_memory(cuda, hw_max):
+    """hw_max whose block needs more than 48 KB of shared memory (opted
+    in at launch; ~109 KB at 600, ~219 KB at the wrapper's limit) still
+    launches and meets the gates."""
+    y, fs_dec, pos, cands = refine_stage("goldens", 22050, 2, cuda)
+    check_refine(y, pos, cands, fs_dec, hw_max=hw_max)
+
+
+def test_refine_never_syncs(cuda):
+    """The wrapper and the float32 _refine_all run under
+    set_sync_debug_mode("error") (the phase table is built inside)."""
+    from world_tpu_torch.models import harvest as port_harvest
+
+    y, fs_dec, pos, cands = refine_stage("goldens", 22050, 16, cuda)
+    refine._device_table.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r, s = refine.harvest_refine(y, pos, cands, fs_dec, 71.0, 800.0,
+                                     hw_max_of(fs_dec))
+        r2, s2 = port_harvest._refine_all(
+            y, torch.full((), fs_dec, device=cuda), pos, cands, 71.0, 800.0,
+            None, fs_dec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(r, r2) and torch.equal(s, s2)
+
+
+def test_refine_plain_never_runs_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel: with the plain version made to
+    raise, the float32 Harvest step still runs on the card and launches
+    the kernel once."""
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached on the card")
+    monkeypatch.setattr(refine, "harvest_refine_plain", boom)
+    monkeypatch.setattr(refine, "_refine_pairs", boom)
+    x = golden("x").astype(np.float32)
+    step = pipeline.make_batch_step(22050, len(x), f0_method="harvest",
+                                    with_synthesis=False, device=cuda)
+    before = refine.harvest_refine.launches
+    f0 = step(np.stack([x, 0.7 * x]))[0]
+    assert refine.harvest_refine.launches == before + 1
+    assert torch.isfinite(f0).all() and (f0 > 0).any()
+
+
+def test_refine_launch_failure_raises(cuda):
+    """A launch the kernel refuses (shared memory past the card's) raises."""
+    import ctypes
+    entry = _cuda.entry("refine", "harvest_refine",
+                        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
+                        + (ctypes.c_float,) * 3 + (ctypes.c_void_p,))
+    t = torch.ones((1, 8), device=cuda)
+    with pytest.raises(RuntimeError):
+        _cuda.launch("harvest_refine", entry, t.device, *[t.data_ptr()] * 6,
+                     1, 8, 1, 8, 100000, 19, 8000.0, 71.0, 800.0)

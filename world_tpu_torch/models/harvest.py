@@ -10,8 +10,10 @@ requested period (src/harvest.cpp:1223-1255):
      zero-crossing streams, interp1 -> raw candidates.
   B. channel-run collapse into per-frame candidate lists, +/-3 frame
      overlap smear, then the instantaneous-frequency refinement of every
-     valid (frame, candidate) pair: full FFTs bucketed by power-of-two
-     size, the formulation that bit-matches the reference.
+     valid (frame, candidate) pair: in float64 full FFTs bucketed by
+     power-of-two size, the formulation that bit-matches the reference;
+     in float32 the JAX package's direct 6-bin DFT on frame-centred
+     windows (ops/refine.py, one kernel on the card).
   C. neighbour-consistency pruning.
   D. contour fixing and per-section zero-phase smoothing
      (models/harvest_contour.py).
@@ -28,6 +30,7 @@ from ..ops import common
 from ..ops.common import get_suitable_fft_size
 from ..ops.filterbank import filtered_signal_harvest
 from ..ops.matlab import decimate, interp1, matlab_round
+from ..ops.refine import harvest_refine
 from ..ops.zerocross import four_zero_crossing_streams
 from .harvest_contour import fix_and_smooth
 
@@ -197,10 +200,22 @@ def _refine_buckets(fs, f0_floor, f0_ceil):
     return sizes
 
 
-def _refine_all(y, fs_t, positions, cands, f0_floor, f0_ceil, sizes):
-    """Refine every valid (frame, candidate) pair, bucketed by the pair's
-    fft size (the bucketed-FFT formulation).  cands (B, F, M).
-    Returns (refined, scores), each (B, F, M)."""
+def _refine_all(y, fs_t, positions, cands, f0_floor, f0_ceil, sizes,
+                fs_static):
+    """Refine every valid (frame, candidate) pair.  cands (B, F, M);
+    ``fs_static`` is y's rate as a Python float.  Returns (refined,
+    scores), each (B, F, M).
+
+    float64: the bucketed-FFT formulation, bucketed by the pair's fft
+    size (the golden path, as JAX keeps it).  float32: JAX's direct 6-bin
+    DFT on frame-centred windows (ops/refine.harvest_refine), with JAX's
+    window bound: candidates reach down to f0_floor 0.9 0.9 (the x0.9
+    channel widening and the +-10% acceptance band)."""
+    if cands.dtype == torch.float32:
+        hw_max = int(1.5 * fs_static / (f0_floor * 0.9 * 0.9) + 1.0) + 1
+        return harvest_refine(y.contiguous(), positions.contiguous(),
+                              cands.contiguous(), fs_static, f0_floor,
+                              f0_ceil, hw_max)
     dev = y.device
     usable = cands > 0.0
     rows, frames, _ = usable.nonzero(as_tuple=True)
@@ -250,10 +265,12 @@ def _remove_unreliable(cands, scores):
             torch.where(kill, torch.zeros_like(scores), scores))
 
 
-def _harvest_candidates(x, fs, f0_floor, f0_ceil, channels_in_octave,
-                        speed, clock):
-    """Stages A-C at the 1 ms internal frame period.  x (B, L).
-    Returns (candidates, scores), each (B, F1, slots)."""
+def _candidate_stage(x, fs, f0_floor, f0_ceil, channels_in_octave, speed,
+                     clock):
+    """Stages A-B up to the refinement, at the 1 ms internal frame
+    period.  x (B, L).  Returns (y (B, Ly) decimated, its rate as a
+    Python float, y's rate as a 0-dim tensor, positions (F1,),
+    candidates (B, F1, slots))."""
     dtype, dev = x.dtype, x.device
     x_length = x.shape[1]
     adj_floor = f0_floor * 0.9
@@ -282,10 +299,19 @@ def _harvest_candidates(x, fs, f0_floor, f0_ceil, channels_in_octave,
         max_candidates = int(round(n_channels / 10.0)) * 7
         cands0, n_cands = _detect_official_candidates(raw, max_candidates)
         cands = _overlap_candidates(cands0, n_cands)
+    return y, actual_fs, fs_t, positions, cands
+
+
+def _harvest_candidates(x, fs, f0_floor, f0_ceil, channels_in_octave,
+                        speed, clock):
+    """Stages A-C at the 1 ms internal frame period.  x (B, L).
+    Returns (candidates, scores), each (B, F1, slots)."""
+    y, actual_fs, fs_t, positions, cands = _candidate_stage(
+        x, fs, f0_floor, f0_ceil, channels_in_octave, speed, clock)
     with clock("harvest.refine"):
         sizes = _refine_buckets(actual_fs, f0_floor, f0_ceil)
         refined, scores = _refine_all(y, fs_t, positions, cands, f0_floor,
-                                      f0_ceil, sizes)
+                                      f0_ceil, sizes, actual_fs)
         return _remove_unreliable(refined, scores)
 
 
