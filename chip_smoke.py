@@ -13,8 +13,9 @@ Phases, one JSON line each, in this order:
   main_22k  make_batch_step(22050, ..., f0_method="harvest") at batch 16
             in float32 fast mode, gated against the C++ goldens;
             launches of every kernel (the ragged mode, the scan,
-            Harvest's refinement and contour kernels and the block-LTI
-            state scan must have launched, the refinement once a step);
+            Harvest's refinement, reliability-pass and contour kernels
+            and the block-LTI state scan must have launched, the
+            refinement and the reliability pass once a step);
             stage ms
   main_48k  the same at 48 kHz (fft 2048)
   dio_22k   the JAX package's default step, make_batch_step(22050, ...,
@@ -154,25 +155,32 @@ Phases, one JSON line each, in this order:
             version at world_tpu_torch/tools/refine_bench.py's GATES
             (surviving masks equal but for scores within 1e-4 of 2.5 or
             F0s of a range limit, F0 relative <= 1e-5, score relative <=
-            1e-3), with its device ms (torch.profiler), the plain
-            version's ms, the operations and bytes bounds, the share of
-            the bound and its launches on the paths
+            1e-3), with its device ms (torch.profiler; CUDA-event ms
+            where a trace did not hold every launch, as device_ms_read
+            says), the plain version's ms, the operations and bytes bounds, the share of the bound
+            and its launches on the paths; and the reliability pass's
+            kernel (harvest_remove_unreliable) on its wrapper's
+            arguments in those phases and in exact_22k / exact_48k
+            (float64), against its plain version (torch.equal), with
+            the same times, its bytes bound and its launches
   stage_ops the top-level torch ops each stage of one batch step issues
             (world_tpu_torch/tools/profile_step.py: stage_ops) for the
             four batch steps and the float64 exact Harvest step at 22.05
             kHz, and the kernels' launches in it (STAGE_OPS_LIMITS):
             dio.fix at most 50 ops and one dio_fix_walks launch,
             harvest.contour at most 350 (400 in float64) and one
-            harvest_fix_step3 launch, harvest.refine at most 60 and one
-            harvest_refine launch in float32, harvest.decimate at most 50, with
+            harvest_fix_step3 launch, harvest.refine at most 6 ops and
+            one harvest_refine and one harvest_remove_unreliable launch
+            in float32 (at most 960 and one remove launch in float64),
+            harvest.decimate at most 50, with
             four lti_state_scan launches a float32 Harvest step and two
             iir_zero_phase launches a float64 one
-Then the kernels summary line (ragged, scan, contour, refinement and
-state-scan launches summed over the four batch runs, the cli_* phases
-and the mesh phases, general launches over the streaming, long-form and cli_*
+Then the kernels summary line (ragged, scan, contour, refinement,
+reliability-pass and state-scan launches summed over the four batch
+runs, exact_path, the cli_* phases and the mesh phases, general launches over the streaming, long-form and cli_*
 phases, iir_zero_phase and randn_span launches over exact_path and the
 cli_* phases; lti_state_scan's entry also names longform_48k's 3-state
-case beside main_22k's),
+case beside main_22k's; each entry says how its device_ms was read),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -341,8 +349,8 @@ CONTOUR_INPUTS = {}
 # The IIR and RNG span wrappers' calls in those phases:
 # IIR_INPUTS[phase][wrapper name] = [(args, kwargs), ...].
 IIR_INPUTS = {}
-# The refinement wrapper's first call there:
-# REFINE_INPUTS[phase]["harvest_refine"] = (args, kwargs).
+# The refinement and reliability-pass wrappers' first calls there:
+# REFINE_INPUTS[phase][wrapper name] = (args, kwargs).
 REFINE_INPUTS = {}
 
 
@@ -407,9 +415,10 @@ def main_path(torch, W, ola, get, scalars, tag, card):
     for k in path_kernels(ola, "harvest"):
         check(launches[k.__name__] > 0,
               f"{tag}: kernel {k.__name__} never launched on the main path")
-    check(launches["harvest_refine"] == len(times),
-          f"{tag}: harvest_refine launched {launches['harvest_refine']} "
-          f"times in {len(times)} steps")
+    for name in ("harvest_refine", "remove_unreliable"):
+        check(launches[name] == len(times),
+              f"{tag}: {name} launched {launches[name]} times in "
+              f"{len(times)} steps")
     return result, recorded
 
 
@@ -589,7 +598,7 @@ def exact_path(torch, W, ola, tag, gold, vuv_min, sp_gate):
     counts its top-level torch calls; the second's outputs against the
     goldens.  Returns the launches."""
     from world_tpu_torch.io.audio import wavread
-    from world_tpu_torch.tools import iir_bench
+    from world_tpu_torch.tools import iir_bench, refine_bench
 
     get, sc = load_goldens(gold)
     fs = sc["fs"]
@@ -605,7 +614,8 @@ def exact_path(torch, W, ola, tag, gold, vuv_min, sp_gate):
         torch.cuda.synchronize()
         return p, y
 
-    with iir_bench.recording(IIR_INPUTS.setdefault(tag, {})):
+    with iir_bench.recording(IIR_INPUTS.setdefault(tag, {})), \
+            refine_bench.recording(REFINE_INPUTS.setdefault(tag, {})):
         run()
     zero_counts(ola)
     t0 = time.perf_counter()
@@ -1804,15 +1814,16 @@ def all_kernels(ola):
     return [ola.ola_accumulate, ola.ola_accumulate_ragged, scan.cumsum_rows,
             contour.dio_fix_walks, contour.harvest_fix_step3,
             iir.iir_zero_phase, iir.lti_state_scan, rng.randn_span,
-            refine.harvest_refine]
+            refine.harvest_refine, refine.remove_unreliable]
 
 
 def path_kernels(ola, f0_method, synthesis=True, exact=False):
     """The wrappers a step with ``f0_method`` must launch: the F0 stage's
     contour kernel; Harvest's decimation and smoothing (the state scan
     in float32, the zero-phase recurrence with ``exact``, float64 and the
-    reference RNG; Dio at its default speed 1 does not decimate) and in
-    float32 its refinement; with ``exact`` the RNG span; and with
+    reference RNG; Dio at its default speed 1 does not decimate), its
+    reliability pass and in float32 its refinement; with ``exact`` the
+    RNG span; and with
     synthesis the scan kernel and the OLA kernel's ragged mode
     (streaming, checked in its phases, the general mode)."""
     from world_tpu_torch.ops import contour, iir, refine, rng, scan
@@ -1821,6 +1832,7 @@ def path_kernels(ola, f0_method, synthesis=True, exact=False):
                 "harvest": contour.harvest_fix_step3}[f0_method]]
     if f0_method == "harvest":
         kernels.append(iir.iir_zero_phase if exact else iir.lti_state_scan)
+        kernels.append(refine.remove_unreliable)
         if not exact:
             kernels.append(refine.harvest_refine)
     if exact:
@@ -1836,14 +1848,18 @@ CONTOUR_CASES = ("main_22k/harvest_fix_step3", "main_48k/harvest_fix_step3",
 # (F0 method, float64 exact): [(stage, most torch ops it runs, a
 # kernel, its launches in the whole step)].  A float32 Harvest step runs
 # the state scan twice in decimation and twice in the smoothing, and the
-# refinement once; a float64 one the zero-phase recurrence once in each.
+# refinement and the reliability pass once (harvest.refine: their four
+# output allocations); a float64 one the zero-phase recurrence once in
+# each and the reliability pass once after its bucketed FFTs.
 STAGE_OPS_LIMITS = {
     ("dio", False): [("dio.fix", 50, "dio_fix_walks", 1)],
     ("harvest", False): [("harvest.contour", 350, "harvest_fix_step3", 1),
                          ("harvest.decimate", 50, "lti_state_scan", 4),
-                         ("harvest.refine", 60, "harvest_refine", 1)],
+                         ("harvest.refine", 6, "harvest_refine", 1),
+                         ("harvest.refine", 6, "remove_unreliable", 1)],
     ("harvest", True): [("harvest.contour", 400, "harvest_fix_step3", 1),
-                        ("harvest.decimate", 50, "iir_zero_phase", 2)]}
+                        ("harvest.decimate", 50, "iir_zero_phase", 2),
+                        ("harvest.refine", 960, "remove_unreliable", 1)]}
 
 
 def stage_ops_phase(torch, W, ola):
@@ -1965,13 +1981,18 @@ def iir_kernels_phase(torch, card, replays, launches):
 
 
 REFINE_CASES = ("main_22k", "main_48k", "longform_48k")
+# The reliability pass's recorded calls: the float32 ones beside the
+# refinement's, and the float64 exact path's.
+REMOVE_CASES = REFINE_CASES + ("exact_22k", "exact_48k")
 
 
 def refine_kernel_phase(torch, card, replays, launches, flush):
     """Harvest's refinement kernel on the arguments its wrapper received
     in main_22k, main_48k and longform_48k's first batch, against its
-    plain version at refine_bench.GATES, beside ``launches``, its
-    launches on the paths (at least one)."""
+    plain version at refine_bench.GATES, and the reliability pass's
+    kernel on its wrapper's arguments there and in exact_path (float64),
+    against its plain version (torch.equal), beside ``launches``, each
+    kernel's launches on the paths (at least one)."""
     from world_tpu_torch.tools import refine_bench
 
     recorded = dict(REFINE_INPUTS)
@@ -1979,12 +2000,20 @@ def refine_kernel_phase(torch, card, replays, launches, flush):
         recorded[tag] = replays[tag]
     cases = {tag: refine_bench.measure(torch, *recorded[tag][
         "harvest_refine"], flush) for tag in REFINE_CASES}
-    emit("refine_kernel", card=card, launches=launches, cases=cases)
-    check(launches > 0, "refine_kernel: never launched on the paths")
+    removes = {tag: refine_bench.measure_remove(
+        torch, recorded[tag]["remove_unreliable"][0], flush)
+        for tag in REMOVE_CASES}
+    emit("refine_kernel", card=card, launches=launches, cases=cases,
+         remove=removes)
+    for name, n in launches.items():
+        check(n > 0, f"refine_kernel: {name} never launched on the paths")
     for tag, c in cases.items():
         check(c["within_gates"], f"refine_kernel {tag}: kernel != plain "
               f"beyond refine_bench.GATES: {c}")
-    return cases
+    for tag, c in removes.items():
+        check(c["what"] == "kernel" and c["equal"],
+              f"refine_kernel {tag}: remove kernel != plain: {c}")
+    return cases, removes
 
 
 def check_cases(cases, what):
@@ -2168,8 +2197,9 @@ def main():
         for name in ("iir_zero_phase", "lti_state_scan", "randn_span")})
     # Harvest's float32 refinement on the arguments its wrapper received
     # in the Harvest batch runs and longform_48k's first batch.
-    refines = refine_kernel_phase(torch, card, replays,
-                                  path_launches("harvest_refine"), flush)
+    refines, removes = refine_kernel_phase(
+        torch, card, replays, {name: path_launches(name) for name in (
+            "harvest_refine", "remove_unreliable")}, flush)
     stage_ops_phase(torch, W, ola)
 
     def line(name, c, launches, source="world_tpu_torch/csrc/ola.cu",
@@ -2180,7 +2210,13 @@ def main():
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-            "device_ms": c["device_ms"], "host_us": c["host_us"],
+            "device_ms": c["device_ms"],
+            # How device_ms was read: "profiler", "cuda events" (the
+            # refinement kernels' fallback where a trace lost a launch),
+            # or "not measured".
+            "device_ms_read": c.get("device_ms_read", "profiler" if c[
+                "device_ms"] is not None else "not measured"),
+            "host_us": c["host_us"],
             "library_device_ms": c["library_device_ms"],
             "shape": c["shape"], "on_main_path": True}
 
@@ -2245,7 +2281,15 @@ def main():
                   replaces="world_tpu/models/harvest.py:265-435"),
              also_replaces="world_tpu/models/harvest.py:487-594",
              **{f"{tag}_device_ms": refines[tag]["device_ms"]
-                for tag in ("main_48k", "longform_48k")})]}),
+                for tag in ("main_48k", "longform_48k")}),
+        # No Pallas kernel: the JAX package's _remove_unreliable, an XLA
+        # fusion over (F, M, M) distances.
+        dict(line("harvest_remove_unreliable", removes["main_22k"],
+                  path_launches("remove_unreliable"),
+                  source="world_tpu_torch/csrc/refine.cu",
+                  replaces="world_tpu/models/harvest.py:602-621"),
+             **{f"{tag}_device_ms": removes[tag]["device_ms"]
+                for tag in ("main_48k", "longform_48k", "exact_22k")})]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ IIR kernels (iir_zero_phase, lti_state_scan; each at its chunk
 edges) and the RNG span kernel (randn_span, at
 lane counts about a warp and the card's warps) against their plain versions
 (torch.equal), Harvest's float32 refinement kernel (harvest_refine)
-against its plain version at refine_bench.GATES, IEEE
+against its plain version at refine_bench.GATES, the reliability pass
+after it (harvest_remove_unreliable, float32 and float64, torch.equal),
+IEEE
 division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
@@ -1114,3 +1116,146 @@ def test_refine_launch_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         _cuda.launch("harvest_refine", entry, t.device, *[t.data_ptr()] * 6,
                      1, 8, 1, 8, 100000, 19, 8000.0, 71.0, 800.0)
+
+
+# ------------------------------------------- Harvest's reliability pass
+
+def remove_inputs(B, F, M, dtype, seed, nan=False):
+    """Seeded (cands, scores) (B, F, M) of ``dtype`` on the CPU: ~60%
+    zeros, F0s in 70-800 Hz, and in every third frame pairs whose
+    neighbour sits exactly 5% away (100 / 105, 20 / 21) or one float32
+    step past it; with ``nan`` a few NaN candidates.  (Also
+    tests/test_torch_refine.py's.)"""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(70.0, 800.0, (B, F, M))
+    c[rng.random((B, F, M)) < 0.6] = 0.0
+    if F >= 3 and M >= 2:
+        c[:, 1::3, 0] = 100.0
+        c[:, 2::3, 0] = 105.0
+        c[:, 1::3, 1] = 20.0
+        c[:, 0::3, M - 1] = 21.0
+        c[:, 2::3, 1] = np.nextafter(np.float32(105.0), np.float32(200.0))
+    if nan:
+        c[rng.random((B, F, M)) < 0.01] = np.nan
+    s = np.where(c > 0, rng.uniform(2.5, 50.0, (B, F, M)), 0.0)
+    return (torch.as_tensor(c.astype(dtype)), torch.as_tensor(s.astype(dtype)))
+
+
+def check_remove(cands, scores, cuda):
+    """One launch of the remove kernel on the card against the plain
+    version on the same card tensors: torch.equal (NaN where the plain
+    version has NaN)."""
+    c, s = cands.to(cuda), scores.to(cuda)
+    before = refine.remove_unreliable.launches
+    got = refine.remove_unreliable(c, s)
+    assert refine.remove_unreliable.launches == before + (c.numel() > 0)
+    want = refine.remove_unreliable_plain(c, s)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("B,F,M", [(1, 1, 105), (1, 2, 105), (1, 3, 105),
+                                   (2, 50, 1), (3, 40, 31), (2, 40, 33),
+                                   (16, 794, 105), (1, 1394, 105),
+                                   (2, 30, 200)])
+def test_remove_kernel_matches_plain(cuda, dtype, B, F, M):
+    """Edge shapes (F = 1, 2, 3; M not a multiple of 32; B = 1), the
+    main_22k shape and the float64 exact path's (1, F, 105)."""
+    cands, scores = remove_inputs(B, F, M, dtype, seed=B * 1000 + F + M)
+    got, _ = check_remove(cands, scores, cuda)
+    if F <= 2:
+        assert torch.equal(got[0].cpu(), cands)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_remove_kernel_nan(cuda, dtype):
+    cands, scores = remove_inputs(4, 60, 105, dtype, seed=7, nan=True)
+    check_remove(cands, scores, cuda)
+
+
+@pytest.mark.parametrize("fs,gold", [(22050, "goldens"),
+                                     (48000, "goldens_fs48")])
+def test_remove_kernel_on_refine_outputs(cuda, fs, gold):
+    """On the refinement's outputs of 16 rows, as the float32 step runs
+    it, and on their float64 copies."""
+    y, fs_dec, pos, cands = refine_stage(gold, fs, 16, cuda)
+    r, s = refine.harvest_refine(y, pos, cands, fs_dec, 71.0, 800.0,
+                                 hw_max_of(fs_dec))
+    got, want = check_remove(r, s, cuda)
+    assert (got[0] == 0).sum() > (r == 0).sum()
+    check_remove(r.double(), s.double(), cuda)
+
+
+def test_refine_and_remove_never_sync(cuda):
+    """Both kernels, and the float32 refine stage as harvest.refine runs
+    it (_refine_all, then remove_unreliable), under
+    set_sync_debug_mode("error"); float64 too for the remove kernel."""
+    from world_tpu_torch.models import harvest as port_harvest
+
+    y, fs_dec, pos, cands = refine_stage("goldens", 22050, 16, cuda)
+    c64, s64 = (t.to(cuda) for t in remove_inputs(1, 300, 105, "float64",
+                                                  seed=3))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r, s = refine.harvest_refine(y, pos, cands, fs_dec, 71.0, 800.0,
+                                     hw_max_of(fs_dec))
+        out = refine.remove_unreliable(r, s)
+        out64 = refine.remove_unreliable(c64, s64)
+        staged = refine.remove_unreliable(*port_harvest._refine_all(
+            y, torch.full((), fs_dec, device=cuda), pos, cands, 71.0, 800.0,
+            None, fs_dec))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = refine.remove_unreliable_plain(r, s)
+    for got in (out, staged):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want64 = refine.remove_unreliable_plain(c64, s64)
+    assert torch.equal(out64[0], want64[0])
+    assert torch.equal(out64[1], want64[1])
+
+
+def test_remove_plain_never_runs_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel: with the plain version made to
+    raise, the float32 Harvest step runs and launches it once."""
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached on the card")
+    monkeypatch.setattr(refine, "remove_unreliable_plain", boom)
+    x = golden("x").astype(np.float32)
+    step = pipeline.make_batch_step(22050, len(x), f0_method="harvest",
+                                    with_synthesis=False, device=cuda)
+    before = refine.remove_unreliable.launches
+    f0 = step(np.stack([x, 0.7 * x]))[0]
+    assert refine.remove_unreliable.launches == before + 1
+    assert torch.isfinite(f0).all() and (f0 > 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_remove_kernel_slots_past_48k_shared_memory(cuda, dtype):
+    """M = 1000: eight warps' neighbour lists (2 M values each) pass 48 KB
+    of shared memory in float64 (opted in at launch); M = 20000 in
+    float64: one warp's list passes what a block may hold, and the
+    launch raises."""
+    cands, scores = remove_inputs(2, 12, 1000, dtype, seed=9)
+    check_remove(cands, scores, cuda)
+    if dtype == "float64":
+        big = torch.zeros((1, 3, 20000), dtype=torch.float64, device=cuda)
+        with pytest.raises(RuntimeError):
+            refine.remove_unreliable(big, big)
+
+
+def test_remove_launch_failure_raises(cuda):
+    """A launch the kernel refuses (an element size it has no build for)
+    raises."""
+    import ctypes
+    entry = _cuda.entry("refine", "harvest_remove_unreliable",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+                        + (ctypes.c_void_p,))
+    t = torch.ones((1, 3, 8), device=cuda)
+    with pytest.raises(RuntimeError):
+        _cuda.launch("harvest_remove_unreliable", entry, t.device,
+                     *[t.data_ptr()] * 4, 1, 3, 8, 2)

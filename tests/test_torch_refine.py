@@ -37,6 +37,8 @@ from world_tpu_torch.device import StageClock  # noqa: E402
 from world_tpu_torch.models import harvest as port_harvest  # noqa: E402
 from world_tpu_torch.ops import refine  # noqa: E402
 
+from test_torch_cuda import remove_inputs  # noqa: E402
+
 FLOOR, CEIL = config.K_FLOOR_F0, config.K_CEIL_F0
 GOLDENS = {"22k": ("goldens", 22050), "48k": ("goldens_fs48", 48000)}
 # (golden, gain, noise std, seed) of each input.
@@ -309,6 +311,26 @@ def test_phase_table_is_exact_at_every_scale():
         np.testing.assert_array_equal(small, big[:, ::1 << (12 - log2)])
 
 
+@pytest.mark.parametrize("hw_max", [1, 2, 193, 210])
+def test_window_table_rows_are_the_window_angles(hw_max):
+    """Row hw of the window table (from window_row(hw)) holds cos / sin(2
+    pi j / (2 hw + 1)), j = 0..hw, in float64 rounded once, as the plain
+    version computes a window past the table; the kernel's buffer is the
+    phase table and then the window table."""
+    w = refine.window_table(hw_max, "cpu")
+    assert w.shape == (refine.window_row(hw_max + 1), 2)
+    assert refine.window_row(hw_max + 1) == hw_max * (hw_max + 3) // 2
+    for hw in sorted({1, min(2, hw_max), hw_max // 2 + 1, hw_max}):
+        j = torch.arange(hw + 1)
+        c, s = refine._window_trig(j, torch.tensor(2 * hw + 1))
+        row = w[refine.window_row(hw):refine.window_row(hw) + hw + 1]
+        assert torch.equal(row[:, 0], c) and torch.equal(row[:, 1], s)
+    k = refine.kernel_table(hw_max, "cpu")
+    log2 = refine.table_log2(hw_max)
+    assert torch.equal(k[:2 << log2].view(2, -1),
+                       refine.phase_table(log2, "cpu"))
+
+
 def test_fft_log2_matches_jax_formula():
     """2 + floor(log2(win_len)) from the exponent equals JAX's float32
     exp2(2 + floor(log(win_len) / log 2)) for every odd window."""
@@ -317,3 +339,106 @@ def test_fft_log2_matches_jax_formula():
         np.log(w.astype(np.float32)) / np.float32(config.K_LOG2)))
     got = 1 << refine.fft_log2(torch.as_tensor(w)).numpy()
     np.testing.assert_array_equal(got, jax_fft.astype(np.int64))
+
+
+# ----------------------------------------------- the kernels' orders
+
+@pytest.mark.parametrize("n", [1, 7, 61, 194, 211])
+def test_warp_sum_order_within_float64(n):
+    """warp_sum is the float64 sum within its rounding bound: each of
+    LANES lanes adds ceil(n / LANES) terms in turn and log2(LANES)
+    butterfly levels follow, so the error is at most (ceil(n / LANES) +
+    log2(LANES)) float32 half-ulps (2^-24) of the sum of magnitudes."""
+    lanes = refine.LANES
+    rng = np.random.default_rng(n)
+    t = rng.standard_normal((200, n)).astype(np.float32)
+    got = refine.warp_sum(torch.as_tensor(t)).double().numpy()
+    exact = t.astype(np.float64).sum(-1)
+    steps = -(-n // lanes) + int(np.log2(lanes))
+    bound = steps * 2.0 ** -24 * np.abs(t).astype(np.float64).sum(-1)
+    assert (np.abs(got - exact) <= bound).all()
+
+
+@pytest.mark.parametrize("n", [1, 5, 61])
+def test_warp_sum_is_the_lane_loops(n):
+    """warp_sum is, bit for bit, lane l of LANES adding j = l, l + LANES,
+    ... to 0.0 in turn, then the butterfly l + (l ^ LANES / 2), ..."""
+    lanes = refine.LANES
+    rng = np.random.default_rng(5)
+    t = rng.standard_normal((50, n)).astype(np.float32)
+    acc = np.zeros((50, lanes), np.float32)
+    for j in range(t.shape[1]):
+        acc[:, j % lanes] = acc[:, j % lanes] + t[:, j]
+    off = lanes // 2
+    while off:
+        acc = acc + acc[:, np.arange(lanes) ^ off]
+        off //= 2
+    np.testing.assert_array_equal(
+        refine.warp_sum(torch.as_tensor(t)).numpy(), acc[:, 0])
+
+
+REMOVE_SHAPES = [(1, 1, 105), (1, 2, 105), (1, 3, 105), (2, 3, 7),
+                 (3, 40, 31), (2, 40, 33), (1, 60, 105), (2, 20, 200)]
+
+
+_jax_remove = jax.jit(jax_harvest._remove_unreliable)
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("B,F,M", REMOVE_SHAPES)
+def test_remove_plain_matches_jax(dtype, B, F, M, nan):
+    """remove_unreliable (the plain version on the CPU) equals JAX's
+    _remove_unreliable row by row, bit for bit: zeros, values exactly 5%
+    apart (kept: 0.05 in the tensors' type is not above itself) and one
+    float32 step past it, F = 1, 2, 3; with ``nan``, NaN candidates too
+    (a NaN in a slot's minimum keeps it in both; NaN where JAX has NaN,
+    torch.equal elsewhere)."""
+    c, s = remove_inputs(B, F, M, dtype, seed=B * 100 + F + M, nan=nan)
+    got = refine.remove_unreliable(c, s)
+    for b in range(B):
+        want = _jax_remove(jnp.asarray(c[b].numpy()),
+                           jnp.asarray(s[b].numpy()))
+        for g, w in zip(got, want):
+            w = torch.as_tensor(np.array(w))
+            assert torch.equal(g[b].isnan(), w.isnan())
+            assert torch.equal(g[b].nan_to_num(), w.nan_to_num())
+    if F >= 3 and M >= 2:
+        # 100 against 105: |a - b| / a == 0.05 exactly, so 100 stays
+        # (where no NaN took its place).
+        kept = got[0][:, 1::3, 0]
+        assert ((kept == 100.0) | kept.isnan()).all()
+    if F <= 2:
+        assert torch.equal(got[0].nan_to_num(), c.nan_to_num())
+
+
+@pytest.mark.parametrize("name", ["22k", "48k"])
+def test_remove_plain_matches_jax_on_golden_refine(name):
+    """On the golden utterances' refinement outputs (float32, and their
+    float64 copies), the port's pass equals JAX's, and zeroes some."""
+    y, fs_dec, pos, cands = stage(name)
+    r, s = refine.harvest_refine(y, pos, cands, fs_dec, FLOOR, CEIL,
+                                 hw_max_of(fs_dec))
+    for dt in (torch.float32, torch.float64):
+        rr, ss = r.to(dt), s.to(dt)
+        got = refine.remove_unreliable(rr, ss)
+        want = _jax_remove(jnp.asarray(rr[0].numpy()),
+                                    jnp.asarray(ss[0].numpy()))
+        assert torch.equal(got[0][0], torch.as_tensor(np.array(want[0])))
+        assert torch.equal(got[1][0], torch.as_tensor(np.array(want[1])))
+        assert ((rr != 0) & (got[0] == 0)).sum() > 0
+
+
+def test_remove_on_cpu_launches_nothing_and_rejects():
+    c, s = remove_inputs(1, 5, 9, "float32", seed=1)
+    before = refine.remove_unreliable.launches
+    refine.remove_unreliable(c, s)
+    assert refine.remove_unreliable.launches == before
+    with pytest.raises(TypeError):
+        refine.remove_unreliable(c.double(), s)
+    with pytest.raises(TypeError):
+        refine.remove_unreliable(c.half(), s.half())
+    with pytest.raises(ValueError):
+        refine.remove_unreliable(c[0], s[0])
+    with pytest.raises(ValueError):
+        refine.remove_unreliable(c, s[:, :-1])

@@ -1,5 +1,5 @@
-"""Harvest's float32 instantaneous-frequency refinement: csrc/refine.cu
-and its plain version.
+"""Harvest's float32 instantaneous-frequency refinement and the pruning
+pass after it: csrc/refine.cu and the plain versions.
 
 ``harvest_refine(y (B, Ly), positions (F,), cands (B, F, M), fs_t,
 f0_floor, f0_ceil, hw_max)``
@@ -14,6 +14,15 @@ f0_floor, f0_ceil, hw_max)``
     int(1.5 fs / (f0_floor 0.9 0.9) + 1) + 1).  Returns (refined,
     scores), each (B, F, M), zero where ``cands <= 0`` or the pair fails
     the range and score test.
+
+``remove_unreliable(cands (B, F, M), scores (B, F, M))``
+    RemoveUnreliableCandidates (src/harvest.cpp:652-688; JAX:
+    world_tpu/models/harvest.py: _remove_unreliable, :602-621), float32
+    or float64: a nonzero candidate of an interior frame with no
+    candidate of frame f - 1 or f + 1 within 5% (|a - b| / a, the limit
+    in the tensors' type) is zeroed with its score.  Returns new
+    (cands, scores); every frame's test sees the values before any was
+    zeroed.
 
 For a pair of frame position p and candidate f0, with c0 = round(p fs +
 0.001), hw = int(1.5 fs / f0 + 1) and j = 0..min(hw, hw_max):
@@ -36,18 +45,20 @@ What differs from the JAX package is the trigonometry, not the
 formulation.  JAX grows cos / sin(d j) and cos / sin(omega j) by radix-16
 angle addition (a TPU economy with ~1e-5 chain error); here every angle
 is reduced exactly: cos / sin(j d) is taken in float64 of 2 pi (j /
-win_len) and rounded once, cos a / sin a are float64 cosines of the
-float32 a rounded once, and the DFT's phase (index_h j) mod fft indexes
-one table of cos / sin(2 pi k / 2^L) built in float64 and rounded to
-float32 once per device (phase_table).  The kernel uses the same table
-and the same float64 angles, and the plain version sums in the kernel's
-order (warp_sum; the harmonics one after another), because a score whose
-active harmonic sits near a spectral null moves by percents with the
-order of the dots' sums.
+win_len) and rounded once (for hw <= hw_max read from one table of
+every window length, window_table), cos a / sin a are float64 cosines
+of the float32 a rounded once, and the DFT's phase (index_h j) mod fft
+indexes one table of cos / sin(2 pi k / 2^L) built in float64 and
+rounded to float32 once per device (phase_table).  The kernel uses the
+same tables and the same float64 angles, and the plain version sums in
+the kernel's order (warp_sum over LANES lanes a pair; the harmonics one
+after another), because a score whose active harmonic sits near a
+spectral null moves by percents with the order of the dots' sums.
 
-On a CUDA tensor the wrapper launches the kernel (always; there is no
-fallback): a build or launch failure raises.  On a CPU tensor it runs the
-plain version.  Neither the wrapper nor the kernel syncs with the host.
+On a CUDA tensor each wrapper launches its kernel (always; there is no
+fallback): a build or launch failure raises.  On a CPU tensor it runs
+the plain version.  Neither the wrappers nor the kernels sync with the
+host.
 """
 
 import ctypes
@@ -63,9 +74,9 @@ from . import _cuda
 from .matlab import matlab_round
 
 N_HARMONICS = 6
-# Most hw_max the kernel takes: its dynamic shared memory (the phase
-# table and eight warps' frame samples and windows, 219 KB at 1200) stays
-# below the 227 KB a block may hold.
+# Most hw_max the kernel takes: its dynamic shared memory (the staged
+# phase table and eight warps' frame samples and slot lists, 146 KB at
+# 1200) stays below the 227 KB a block may hold.
 MAX_HW = 1200
 # Pairs a chunk of the plain version: its largest tensors are (pairs, 6,
 # hw_max + 1), ~10 MB each at the default floor.
@@ -93,18 +104,6 @@ def _host_table(log2):
     return np.stack([np.cos(angle), np.sin(angle)]).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
-def _device_table(log2, device):
-    return upload(_host_table(log2), torch.float32, device)
-
-
-def phase_table(log2, device):
-    """(2, 2^log2) float32: cos and sin of 2 pi k / 2^log2, in float64
-    rounded once; built once a device (the copy to a card through pinned
-    memory, without a sync)."""
-    return _device_table(log2, torch.device(device))
-
-
 def _window_trig(j, win_len):
     """float32 cos / sin(2 pi j / win_len), taken in float64 of the
     fraction j / win_len and rounded once."""
@@ -113,22 +112,76 @@ def _window_trig(j, win_len):
     return torch.cos(angle).float(), torch.sin(angle).float()
 
 
-LANES = 32
-_BUTTERFLY = (16, 8, 4, 2, 1)
+def window_row(hw):
+    """Row ``hw``'s first entry in the window table: the rows hw = 1, 2,
+    ... hold j = 0..hw each, one after another."""
+    return (hw - 1) * (hw + 2) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def _host_window_table(hw_max):
+    hw = torch.arange(1, hw_max + 1)
+    lengths = hw + 1
+    rows = torch.repeat_interleave(hw, lengths)
+    j = torch.arange(int(lengths.sum())) - torch.repeat_interleave(
+        window_row(hw), lengths)
+    c, s = _window_trig(j, 2 * rows + 1)
+    return torch.stack([c, s], 1).numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _device_table(what, device):
+    """``what``: ("phase", log2) or ("kernel", hw_max), uploaded once a
+    device."""
+    kind, n = what
+    if kind == "phase":
+        host = _host_table(n)
+    else:
+        host = np.concatenate([_host_table(table_log2(n)).ravel(),
+                               _host_window_table(n).ravel()])
+    return upload(host, torch.float32, device)
+
+
+def phase_table(log2, device):
+    """(2, 2^log2) float32: cos and sin of 2 pi k / 2^log2, in float64
+    rounded once; built once a device (the copy to a card through pinned
+    memory, without a sync)."""
+    return _device_table(("phase", log2), torch.device(device))
+
+
+def window_table(hw_max, device):
+    """(window_row(hw_max + 1), 2) float32: cos and sin of 2 pi j / (2 hw
+    + 1) for hw = 1..hw_max and j = 0..hw (row hw from window_row(hw)),
+    in float64 rounded once; built once a device."""
+    return kernel_table(hw_max, device)[2 << table_log2(hw_max):].view(
+        -1, 2)
+
+
+def kernel_table(hw_max, device):
+    """The kernel's ``table`` argument: phase_table(table_log2(hw_max))
+    and then window_table(hw_max), one float32 buffer."""
+    return _device_table(("kernel", hw_max), torch.device(device))
+
+
+# Lanes a pair in the kernel (csrc/refine.cu: kLanes).
+LANES = 4
 
 
 def warp_sum(t):
-    """Sum over the last axis (j) in the kernel's order: lane l adds the
-    terms j = l, l + 32, ... to 0 in turn, then the lanes' partials meet
-    in an xor butterfly (l + (l ^ 16), then ^ 8, ^ 4, ^ 2, ^ 1)."""
+    """Sum over the last axis (j) in the kernel's order: lane l of the
+    pair's LANES adds the terms j = l, l + LANES, ... to 0 in turn, then
+    the lanes' partials meet in an xor butterfly (l + (l ^ LANES / 2),
+    then ^ LANES / 4, ..., ^ 1)."""
     t = torch.nn.functional.pad(t, (0, -t.shape[-1] % LANES))
     t = t.unflatten(-1, (-1, LANES))
     acc = torch.zeros_like(t[..., 0, :])
     for i in range(t.shape[-2]):
         acc = acc + t[..., i, :]
     lane = torch.arange(LANES, device=t.device)
-    for off in _BUTTERFLY:
+    off = LANES // 2
+    while off:
         acc = acc + acc[..., lane ^ off]
+        off //= 2
     return acc[..., 0]
 
 
@@ -138,7 +191,7 @@ def _blackman(c2):
 
 
 def _refine_pairs(y, rows, c0, pos, f0, hw, fs, f0_floor, f0_ceil, hw_max,
-                  table, log2_max):
+                  table, log2_max, wtable):
     """The plain version on N pairs: y (B, Ly); rows, c0, hw (N,) int64;
     pos, f0 (N,) float32; fs a 0-dim float32 tensor.  Returns (refined,
     score), each (N,)."""
@@ -153,7 +206,14 @@ def _refine_pairs(y, rows, c0, pos, f0, hw, fs, f0_floor, f0_ceil, hw_max,
     a = (2.0 * config.K_PI) * t0 / wlt
     ca = torch.cos(a.double()).float()[:, None]
     sa = torch.sin(a.double()).float()[:, None]
+    # The window table's row for hw <= hw_max (as the kernel reads it),
+    # float64 of the rest rounded once (as the kernel computes it).
+    inside = (hw <= hw_max)[:, None]
+    hw_in = hw.clamp(max=hw_max)[:, None]
+    at = window_row(hw_in) + torch.minimum(j, hw_in)
     cosj, sinj = _window_trig(j, win_len[:, None])
+    cosj = torch.where(inside, wtable[at, 0], cosj)
+    sinj = torch.where(inside, wtable[at, 1], sinj)
     w_p = torch.where(in_win, _blackman(ca * cosj - sa * sinj), zero)
     w_m = torch.where(in_win, _blackman(ca * cosj + sa * sinj), zero)
 
@@ -218,7 +278,7 @@ def _refine_pairs(y, rows, c0, pos, f0, hw, fs, f0_floor, f0_ceil, hw_max,
 def harvest_refine_plain(y, positions, cands, fs_t, f0_floor, f0_ceil,
                          hw_max):
     """The plain version: the usable pairs, PLAIN_CHUNK at a time, in
-    tensor ops."""
+    tensor ops, the dots summed in the kernel's order (warp_sum)."""
     dev, dtype = y.device, y.dtype
     refined = torch.zeros_like(cands)
     scores = torch.zeros_like(cands)
@@ -233,12 +293,13 @@ def harvest_refine_plain(y, positions, cands, fs_t, f0_floor, f0_ceil,
     hw = (1.5 * fs / f0 + 1.0).to(torch.int64)
     log2_max = max(table_log2(hw_max), int(fft_log2(2 * hw + 1).max()))
     table = phase_table(log2_max, dev)
+    wtable = window_table(hw_max, dev)
     r_out, s_out = [], []
     for a in range(0, rows.numel(), PLAIN_CHUNK):
         s = slice(a, a + PLAIN_CHUNK)
         r, sc = _refine_pairs(y, rows[s], c0[s], positions[frames[s]],
                               f0[s], hw[s], fs, f0_floor, f0_ceil, hw_max,
-                              table, log2_max)
+                              table, log2_max, wtable)
         r_out.append(r)
         s_out.append(sc)
     refined[rows, frames, slots] = torch.cat(r_out)
@@ -287,18 +348,75 @@ def harvest_refine(y, positions, cands, fs_t, f0_floor, f0_ceil, hw_max):
     scores = torch.empty_like(cands)
     if cands.numel() == 0:
         return refined, scores
-    log2 = table_log2(hw_max)
-    table = phase_table(log2, y.device)
     entry = _cuda.entry("refine", "harvest_refine",
                         (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
                         + (ctypes.c_float,) * 3 + (ctypes.c_void_p,))
+    table = kernel_table(hw_max, y.device)
     B, F, M = cands.shape
     _cuda.launch("harvest_refine", entry, y.device, y.data_ptr(),
                  positions.data_ptr(), cands.data_ptr(), table.data_ptr(),
                  refined.data_ptr(), scores.data_ptr(), B, y.shape[1], F, M,
-                 hw_max, log2, float(fs_t), float(f0_floor), float(f0_ceil))
+                 hw_max, table_log2(hw_max), float(fs_t), float(f0_floor),
+                 float(f0_ceil))
     harvest_refine.launches += 1
     return refined, scores
 
 
 harvest_refine.launches = 0      # kernel launches (CUDA path only)
+
+
+def remove_unreliable_plain(cands, scores):
+    """The plain version: zero candidates with no close neighbour in the
+    adjacent frames (src/harvest.cpp:652-688), over (B, F, M, M)
+    distance tensors."""
+    nxt = torch.cat([cands[:, 1:], cands[:, -1:]], 1)
+    prv = torch.cat([cands[:, :1], cands[:, :-1]], 1)
+
+    def min_err(a, b):
+        # min over b's candidates of |a - b_j| / a, capped at 1.0
+        e = torch.abs(a[..., :, None] - b[..., None, :]) / a[..., :, None]
+        return torch.clamp(e.amin(-1), max=1.0)
+
+    bad = torch.minimum(min_err(cands, nxt), min_err(cands, prv)) > 0.05
+    j = torch.arange(cands.shape[1], device=cands.device)
+    interior = ((j > 0) & (j < cands.shape[1] - 1))[None, :, None]
+    kill = bad & interior & (cands != 0.0)
+    return (torch.where(kill, torch.zeros_like(cands), cands),
+            torch.where(kill, torch.zeros_like(scores), scores))
+
+
+def remove_unreliable(cands, scores):
+    """``cands`` and ``scores`` (B, F, M), float32 or float64, with the
+    unreliable candidates and their scores zeroed.  Returns new tensors
+    (cands, scores)."""
+    if cands.dtype not in (torch.float32, torch.float64) or \
+            scores.dtype != cands.dtype:
+        raise TypeError(f"cands and scores must be one of float32 and "
+                        f"float64, got {cands.dtype} and {scores.dtype}")
+    if cands.dim() != 3 or scores.shape != cands.shape:
+        raise ValueError(f"shapes: cands {tuple(cands.shape)}, scores "
+                         f"{tuple(scores.shape)} (want two equal (B, F, M))")
+    if scores.device != cands.device:
+        raise ValueError("inputs on different devices")
+    if cands.device.type == "cpu":
+        return remove_unreliable_plain(cands, scores)
+    if cands.device.type != "cuda":
+        raise ValueError(f"unsupported device {cands.device}")
+    if not (cands.is_contiguous() and scores.is_contiguous()):
+        raise ValueError("cands and scores must be contiguous")
+    out_c = torch.empty_like(cands)
+    out_s = torch.empty_like(scores)
+    if cands.numel() == 0:
+        return out_c, out_s
+    entry = _cuda.entry("refine", "harvest_remove_unreliable",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+                        + (ctypes.c_void_p,))
+    B, F, M = cands.shape
+    _cuda.launch("harvest_remove_unreliable", entry, cands.device,
+                 cands.data_ptr(), scores.data_ptr(), out_c.data_ptr(),
+                 out_s.data_ptr(), B, F, M, cands.element_size())
+    remove_unreliable.launches += 1
+    return out_c, out_s
+
+
+remove_unreliable.launches = 0   # kernel launches (CUDA path only)
