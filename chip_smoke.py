@@ -24,7 +24,8 @@ Phases, one JSON line each, in this order:
             fast mode; F0 gated against the golden StoneMask track, coded
             sp/ap against the codec of a full step, the ragged and scan
             kernels and Dio's contour kernel launched (Dio at its default
-            speed 1 does not decimate); stage ms
+            speed 1 does not decimate), StoneMask's refinement kernel
+            once a step; stage ms
   dio_48k   the same at 48 kHz
   dio_vs_cpu  row 0 of dio_22k's batch, rng_mode "none", on the card
             against the same step on the CPU
@@ -163,11 +164,19 @@ Phases, one JSON line each, in this order:
             arguments in those phases and in exact_22k / exact_48k
             (float64), against its plain version (torch.equal), with
             the same times, its bytes bound and its launches
+  stonemask_kernel  StoneMask's float32 refinement kernel
+            (stonemask_refine) on the arguments its wrapper received in
+            dio_22k, dio_48k and corpus_batched's first batch, against
+            its plain version at world_tpu_torch/tools/stonemask_bench.py's
+            GATES (VUV equal, F0 relative <= 1e-6), with its device ms,
+            the plain version's ms, the operations and bytes bounds, the
+            share of the bound and its launches on the paths
   stage_ops the top-level torch ops each stage of one batch step issues
             (world_tpu_torch/tools/profile_step.py: stage_ops) for the
             four batch steps and the float64 exact Harvest step at 22.05
             kHz, and the kernels' launches in it (STAGE_OPS_LIMITS):
             dio.fix at most 50 ops and one dio_fix_walks launch,
+            stonemask at most 6 and one stonemask_refine launch,
             harvest.contour at most 350 (400 in float64) and one
             harvest_fix_step3 launch, harvest.refine at most 6 ops and
             one harvest_refine and one harvest_remove_unreliable launch
@@ -176,7 +185,7 @@ Phases, one JSON line each, in this order:
             four lti_state_scan launches a float32 Harvest step and two
             iir_zero_phase launches a float64 one
 Then the kernels summary line (ragged, scan, contour, refinement,
-reliability-pass and state-scan launches summed over the four batch
+reliability-pass, StoneMask and state-scan launches summed over the four batch
 runs, exact_path, the cli_* phases and the mesh phases, general launches over the streaming, long-form and cli_*
 phases, iir_zero_phase and randn_span launches over exact_path and the
 cli_* phases; lti_state_scan's entry also names longform_48k's 3-state
@@ -273,13 +282,14 @@ def drive(torch, ola, step, fresh):
     steps, the counts read, and three stage-timed steps.  Returns (the
     last timed step's outputs, step seconds, launches, stage ms,
     recorded inputs)."""
-    from world_tpu_torch.tools import iir_bench, refine_bench
+    from world_tpu_torch.tools import iir_bench, refine_bench, stonemask_bench
     from world_tpu_torch.tools.contour_bench import recording
 
     recorded = {}
     with recording_ola(recorded), recording_scan(recorded), \
             recording(recorded), iir_bench.recording(recorded), \
-            refine_bench.recording(recorded):
+            refine_bench.recording(recorded), \
+            stonemask_bench.recording(recorded):
         step(fresh())                               # warm-up
     torch.cuda.synchronize()
     for k in all_kernels(ola):
@@ -352,6 +362,9 @@ IIR_INPUTS = {}
 # The refinement and reliability-pass wrappers' first calls there:
 # REFINE_INPUTS[phase][wrapper name] = (args, kwargs).
 REFINE_INPUTS = {}
+# StoneMask's refinement wrapper's first call there:
+# STONEMASK_INPUTS[phase]["stonemask_refine"] = (args, kwargs).
+STONEMASK_INPUTS = {}
 
 
 def batch_maker(torch, x, seed=20261016):
@@ -499,6 +512,9 @@ def dio_path(torch, W, ola, get, scalars, tag, card):
     for k in path_kernels(ola, "dio"):
         check(launches[k.__name__] > 0,
               f"{tag}: kernel {k.__name__} never launched on the Dio path")
+    check(launches["stonemask_refine"] == len(times),
+          f"{tag}: stonemask_refine launched {launches['stonemask_refine']} "
+          f"times in {len(times)} steps")
     return result, recorded
 
 
@@ -1374,6 +1390,7 @@ def corpus_batched(torch, W, tmp, paths, audio_s):
     from world_tpu_torch import config
     from world_tpu_torch.io.audio import peek_header, wavread
     from world_tpu_torch.io.parameterio import read_npz
+    from world_tpu_torch.tools import stonemask_bench
     from world_tpu_torch.tools.batch_invariance import BUCKETS, picked_batches
     from world_tpu_torch.utils.corpus import BatchedCorpusRunner
 
@@ -1393,7 +1410,9 @@ def corpus_batched(torch, W, tmp, paths, audio_s):
     runner._dispatch = dispatch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    m = runner.run(paths)
+    with stonemask_bench.recording(STONEMASK_INPUTS.setdefault(
+            "corpus_batched", {})):
+        m = runner.run(paths)
     peak = torch.cuda.max_memory_allocated()
 
     # Invariance: a file's parameters do not depend on its batch.  Each
@@ -1809,12 +1828,14 @@ def scaling_phase(torch, sizes=(1, 2)):
 
 def all_kernels(ola):
     """Every kernel wrapper of the port (each counts its launches)."""
-    from world_tpu_torch.ops import contour, iir, refine, rng, scan
+    from world_tpu_torch.ops import (contour, iir, refine, rng, scan,
+                                     stonemask)
 
     return [ola.ola_accumulate, ola.ola_accumulate_ragged, scan.cumsum_rows,
             contour.dio_fix_walks, contour.harvest_fix_step3,
             iir.iir_zero_phase, iir.lti_state_scan, rng.randn_span,
-            refine.harvest_refine, refine.remove_unreliable]
+            refine.harvest_refine, refine.remove_unreliable,
+            stonemask.stonemask_refine]
 
 
 def path_kernels(ola, f0_method, synthesis=True, exact=False):
@@ -1822,14 +1843,16 @@ def path_kernels(ola, f0_method, synthesis=True, exact=False):
     contour kernel; Harvest's decimation and smoothing (the state scan
     in float32, the zero-phase recurrence with ``exact``, float64 and the
     reference RNG; Dio at its default speed 1 does not decimate), its
-    reliability pass and in float32 its refinement; with ``exact`` the
-    RNG span; and with
+    reliability pass and in float32 its refinement; Dio's StoneMask in
+    float32; with ``exact`` the RNG span; and with
     synthesis the scan kernel and the OLA kernel's ragged mode
     (streaming, checked in its phases, the general mode)."""
-    from world_tpu_torch.ops import contour, iir, refine, rng, scan
+    from world_tpu_torch.ops import contour, iir, refine, rng, scan, stonemask
 
     kernels = [{"dio": contour.dio_fix_walks,
                 "harvest": contour.harvest_fix_step3}[f0_method]]
+    if f0_method == "dio" and not exact:
+        kernels.append(stonemask.stonemask_refine)
     if f0_method == "harvest":
         kernels.append(iir.iir_zero_phase if exact else iir.lti_state_scan)
         kernels.append(refine.remove_unreliable)
@@ -1850,9 +1873,12 @@ CONTOUR_CASES = ("main_22k/harvest_fix_step3", "main_48k/harvest_fix_step3",
 # the state scan twice in decimation and twice in the smoothing, and the
 # refinement and the reliability pass once (harvest.refine: their four
 # output allocations); a float64 one the zero-phase recurrence once in
-# each and the reliability pass once after its bucketed FFTs.
+# each and the reliability pass once after its bucketed FFTs.  A float32
+# Dio step runs StoneMask's refinement once (its output allocation and
+# the positions' expand).
 STAGE_OPS_LIMITS = {
-    ("dio", False): [("dio.fix", 50, "dio_fix_walks", 1)],
+    ("dio", False): [("dio.fix", 50, "dio_fix_walks", 1),
+                     ("stonemask", 6, "stonemask_refine", 1)],
     ("harvest", False): [("harvest.contour", 350, "harvest_fix_step3", 1),
                          ("harvest.decimate", 50, "lti_state_scan", 4),
                          ("harvest.refine", 6, "harvest_refine", 1),
@@ -2014,6 +2040,29 @@ def refine_kernel_phase(torch, card, replays, launches, flush):
         check(c["what"] == "kernel" and c["equal"],
               f"refine_kernel {tag}: remove kernel != plain: {c}")
     return cases, removes
+
+
+STONEMASK_CASES = ("dio_22k", "dio_48k", "corpus_batched")
+
+
+def stonemask_kernel_phase(torch, card, replays, launches, flush):
+    """StoneMask's refinement kernel on the arguments its wrapper
+    received in dio_22k, dio_48k and corpus_batched's first batch,
+    against its plain version at stonemask_bench.GATES, beside
+    ``launches``, its launches on the paths (at least one)."""
+    from world_tpu_torch.tools import stonemask_bench
+
+    recorded = dict(STONEMASK_INPUTS)
+    for tag in ("dio_22k", "dio_48k"):
+        recorded[tag] = replays[tag]
+    cases = {tag: stonemask_bench.measure(torch, *recorded[tag][
+        "stonemask_refine"], flush) for tag in STONEMASK_CASES}
+    emit("stonemask_kernel", card=card, launches=launches, cases=cases)
+    check(launches > 0, "stonemask_kernel: never launched on the paths")
+    for tag, c in cases.items():
+        check(c["within_gates"], f"stonemask_kernel {tag}: kernel != plain "
+              f"beyond stonemask_bench.GATES: {c}")
+    return cases
 
 
 def check_cases(cases, what):
@@ -2200,6 +2249,10 @@ def main():
     refines, removes = refine_kernel_phase(
         torch, card, replays, {name: path_launches(name) for name in (
             "harvest_refine", "remove_unreliable")}, flush)
+    # StoneMask's float32 refinement on the arguments its wrapper received
+    # in the Dio batch runs and corpus_batched's first batch.
+    stonemasks = stonemask_kernel_phase(
+        torch, card, replays, path_launches("stonemask_refine"), flush)
     stage_ops_phase(torch, W, ola)
 
     def line(name, c, launches, source="world_tpu_torch/csrc/ola.cu",
@@ -2289,7 +2342,16 @@ def main():
                   source="world_tpu_torch/csrc/refine.cu",
                   replaces="world_tpu/models/harvest.py:602-621"),
              **{f"{tag}_device_ms": removes[tag]["device_ms"]
-                for tag in ("main_48k", "longform_48k", "exact_22k")})]}),
+                for tag in ("main_48k", "longform_48k", "exact_22k")}),
+        # No Pallas kernel: the JAX package's float32 StoneMask
+        # (_refine_direct under vmap over the frames).
+        dict(line("stonemask_refine", stonemasks["dio_22k"],
+                  path_launches("stonemask_refine"),
+                  source="world_tpu_torch/csrc/stonemask.cu",
+                  replaces="world_tpu/models/stonemask.py:110-168"),
+             also_replaces="world_tpu/models/stonemask.py:193-211",
+             **{f"{tag}_device_ms": stonemasks[tag]["device_ms"]
+                for tag in ("dio_48k", "corpus_batched")})]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1259,3 +1259,148 @@ def test_remove_launch_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         _cuda.launch("harvest_remove_unreliable", entry, t.device,
                      *[t.data_ptr()] * 4, 1, 3, 8, 2)
+
+
+# ------------------------------------------- StoneMask's float32 refinement
+
+STONEMASK_GOLDENS = {8000: "goldens_fs8", 16000: "goldens_fs16",
+                     22050: "goldens", 44100: "goldens_fs44",
+                     48000: "goldens_fs48"}
+
+
+def stonemask_dio(fs, rows, cuda):
+    """The port's float32 Dio track on the card of ``rows`` rows of the
+    golden utterance at ``fs`` (gains 0.5-1.5 past one row): (x, tp (B,
+    F) contiguous, f0)."""
+    x = np.fromfile(os.path.join(os.path.dirname(GOLDENS),
+                                 STONEMASK_GOLDENS[fs], "x.f64"))
+    gains = np.linspace(0.5, 1.5, rows) if rows > 1 else np.ones(1)
+    xb = torch.as_tensor((x[None] * gains[:, None]).astype(np.float32),
+                         device=cuda)
+    tp, f0 = port_dio.dio_batch(xb, fs)
+    return xb, tp.expand_as(f0).contiguous(), f0
+
+
+def check_stonemask(x, pos, f0, fs, max_len=None):
+    """One launch of the kernel, held to the plain version on the same
+    card tensors at stonemask_bench.GATES."""
+    from world_tpu_torch.models.stonemask import max_len as max_len_of
+    from world_tpu_torch.ops import stonemask
+    from world_tpu_torch.tools import stonemask_bench
+
+    args = (x, pos, f0, float(fs), max_len or max_len_of(fs))
+    before = stonemask.stonemask_refine.launches
+    got = stonemask.stonemask_refine(*args)
+    assert stonemask.stonemask_refine.launches == before + 1
+    want = stonemask.stonemask_refine_plain(*args)
+    stats = stonemask_bench.compare(got, want)
+    assert stonemask_bench.within_gates(stats), stats
+    return got, want
+
+
+@pytest.mark.parametrize("fs", sorted(STONEMASK_GOLDENS))
+def test_stonemask_kernel_matches_plain(cuda, fs):
+    """The golden utterance's float32 Dio track at each golden rate, 16
+    rows at 22.05 and 48 kHz (the batch step's), 2 at the others."""
+    rows = 16 if fs in (22050, 48000) else 2
+    x, pos, f0 = stonemask_dio(fs, rows, cuda)
+    got, _ = check_stonemask(x, pos, f0, fs)
+    assert (got > 0).sum() > 50 * rows
+
+
+@pytest.mark.parametrize("fs", sorted(STONEMASK_GOLDENS))
+def test_stonemask_kernel_edges(cuda, fs):
+    """tests/test_torch_stonemask.py's seeded frames (F0 along a glide
+    over (40, fs / 12], on the fft-size boundaries, windows clamped at
+    both edges, silent frames whose first pass fails) in two rows, and
+    unusable F0s (0, 40, past fs / 12, NaN, inf, negative) in a third."""
+    from world_tpu_torch.tools.stonemask_bench import seeded_frames
+
+    rows = [seeded_frames(fs, seed=s) for s in (fs, fs + 1)]
+    n = min(len(r[1]) for r in rows)
+    x = np.stack([r[0] for r in rows] + [rows[0][0]])
+    pos = np.stack([r[1][:n] for r in rows] + [rows[0][1][:n]])
+    f0 = np.stack([r[2][:n] for r in rows] + [rows[0][2][:n]])
+    odd = [0.0, 40.0, fs / 11.0, np.nan, np.inf, -5.0]
+    f0[2, :len(odd)] = odd
+    got, _ = check_stonemask(*(torch.as_tensor(a, device=cuda)
+                               for a in (x, pos, f0)), fs)
+    got = got.cpu().numpy()
+    assert (got[2, :len(odd)] == 0.0).all()
+    assert (got[:2, -3:] == f0[:2, -3:]).all()     # failed first passes
+
+
+def test_stonemask_kernel_largest_buffer(cuda):
+    """max_len at the wrapper's limit (a warp's buffers 128 KB: one warp a
+    block, opted in past 48 KB) gives what JAX's max_len gives."""
+    from world_tpu_torch.ops import stonemask
+
+    x, pos, f0 = stonemask_dio(22050, 4, cuda)
+    got, _ = check_stonemask(x, pos, f0, 22050, stonemask.MAX_LEN)
+    want, _ = check_stonemask(x, pos, f0, 22050)
+    assert torch.equal(got, want)
+
+
+def test_stonemask_never_syncs(cuda):
+    """The wrapper and the model's float32 StoneMask (stone_mask_batch)
+    run under set_sync_debug_mode("error"), one launch each."""
+    from world_tpu_torch.models import stonemask as port_sm
+    from world_tpu_torch.ops import stonemask
+
+    x, pos, f0 = stonemask_dio(22050, 16, cuda)
+    tp = pos[0]
+    torch.cuda.synchronize()
+    before = stonemask.stonemask_refine.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = stonemask.stonemask_refine(x, pos, f0, 22050.0, 2048)
+        b = port_sm.stone_mask_batch(x, 22050, tp, f0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert stonemask.stonemask_refine.launches == before + 2
+    assert torch.equal(a, b)
+
+
+def test_stonemask_plain_never_runs_on_card(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel: with the plain version made to
+    raise, the float32 Dio step runs on the card and launches it once."""
+    from world_tpu_torch.ops import stonemask
+
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version reached on the card")
+    monkeypatch.setattr(stonemask, "stonemask_refine_plain", boom)
+    monkeypatch.setattr(stonemask, "refine_frames", boom)
+    x = golden("x").astype(np.float32)
+    step = pipeline.make_batch_step(22050, len(x), f0_method="dio",
+                                    with_synthesis=False, device=cuda)
+    before = stonemask.stonemask_refine.launches
+    f0 = step(np.stack([x, 0.7 * x]))[0]
+    assert stonemask.stonemask_refine.launches == before + 1
+    assert torch.isfinite(f0).all() and (f0 > 0).any()
+
+
+def test_stonemask_rejects_bad_inputs(cuda):
+    """float64, a CPU tensor beside card tensors, and non-contiguous
+    inputs raise; so does a launch the kernel refuses (a warp's buffers
+    past the card's shared memory)."""
+    import ctypes
+
+    from world_tpu_torch.ops import stonemask
+
+    x, pos, f0 = stonemask_dio(22050, 2, cuda)
+    ok = (x, pos, f0, 22050.0, 2048)
+    for i, bad, err in ((2, f0.double(), TypeError), (0, x.double(), TypeError),
+                        (1, pos.cpu(), ValueError),
+                        (0, x.t().contiguous().t(), ValueError),
+                        (2, f0.t().contiguous().t(), ValueError)):
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(err):
+            stonemask.stonemask_refine(*args)
+    entry = _cuda.entry("stonemask", "stonemask_refine",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4
+                        + (ctypes.c_float, ctypes.c_void_p))
+    with pytest.raises(RuntimeError):
+        _cuda.launch("stonemask_refine", entry, x.device, x.data_ptr(),
+                     pos.data_ptr(), f0.data_ptr(), f0.data_ptr(), 2,
+                     x.shape[1], f0.shape[1], 1 << 20, 22050.0)

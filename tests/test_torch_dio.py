@@ -6,8 +6,8 @@ Tolerances: float64 meets the golden gates of tests/test_crossrate_golden.py
 RMS) at all five rates and tests/test_f0.py's (VUV 1.0, max < 0.1 cent)
 at 22.05 kHz; float32 is held to the golden StoneMask track at
 tests/test_fast_mode.py's < 1 cent RMS and to the JAX float32 path by
-f32_jax_gate.  The contour walks equal the JAX scans exactly in
-float64."""
+f32_jax_gate (and frame by frame by tests/test_torch_stonemask.py).
+The contour walks equal the JAX scans exactly in float64."""
 
 import os
 
@@ -41,21 +41,21 @@ def rms_cents(f0, ref, where=True):
 
 def f32_jax_gate(f0, jax_f0, golden):
     """The port's float32 StoneMask track against JAX's float32 one and
-    the golden: VUV agreement >= 99% with both; < 1 cent RMS from the
-    golden and no further from it than JAX's track; < 0.1 cent RMS from
-    JAX's track wherever JAX's is within 0.5 cent of the golden.  (JAX's
-    float32 path refines from a direct-bin DFT of one contiguous window,
-    which leaves single frames ~1 cent off the golden where the port,
-    which runs the reference's formulation, is within 0.001 cent; those
-    frames alone put the two tracks 0.104 cent RMS apart at 22.05 kHz.)"""
-    for ref in (jax_f0, golden):
-        assert ((f0 > 0) == (ref > 0)).mean() >= 0.99
+    the golden, each from its own float32 Dio track: VUV equal to JAX's
+    on every frame and >= 99% with the golden; < 1 cent RMS from the
+    golden and within 0.01 cent RMS of JAX's distance from it; < 0.05
+    cent RMS from JAX's track over every frame voiced in both.  (The port
+    computes JAX's float32 StoneMask, ops/stonemask.py.  The two Dio
+    tracks differ by up to 3.2e-6 relative, which leaves the refined
+    tracks 0.00015 cent RMS apart here at 22.05 kHz, 0.0007 on
+    test_torch_pipeline's rows and 0.0124 on a test_torch_corpus file
+    (one frame 0.083 cent off), and the port 5.4e-6 cent RMS further from
+    the 22.05 kHz golden than JAX.)"""
+    assert ((f0 > 0) == (jax_f0 > 0)).all()
+    assert ((f0 > 0) == (golden > 0)).mean() >= 0.99
     assert rms_cents(f0, golden) < 1.0
-    assert rms_cents(f0, golden) <= rms_cents(jax_f0, golden)
-    jv = (jax_f0 > 0) & (golden > 0)
-    jax_ok = np.ones_like(jv)
-    jax_ok[jv] = cents(jax_f0[jv], golden[jv]) < 0.5
-    assert rms_cents(f0, jax_f0, jax_ok) < 0.1
+    assert rms_cents(f0, golden) <= rms_cents(jax_f0, golden) + 0.01
+    assert rms_cents(f0, jax_f0) < 0.05
 
 
 @pytest.mark.parametrize("dirname", ["goldens", "goldens_fs8",

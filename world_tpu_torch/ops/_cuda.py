@@ -23,13 +23,14 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Flags of one source on top of NVCC_FLAGS.  The contour walks, the IIR
-# recurrences and Harvest's refinement compute values that must round as
-# the plain version's separate tensor ops do, so nvcc may not contract a
-# multiply and an add into an FMA there.
+# recurrences, Harvest's refinement and StoneMask's compute values that
+# must round as the plain version's separate tensor ops do, so nvcc may
+# not contract a multiply and an add into an FMA there.
 SOURCE_FLAGS = {"dio_fix": ("-fmad=false",),
                 "harvest_contour": ("-fmad=false",),
                 "iir": ("-fmad=false",),
-                "refine": ("-fmad=false",)}
+                "refine": ("-fmad=false",),
+                "stonemask": ("-fmad=false",)}
 
 
 def nvcc():

@@ -167,18 +167,18 @@ def kernel_table(hw_max, device):
 LANES = 4
 
 
-def warp_sum(t):
+def warp_sum(t, lanes=LANES):
     """Sum over the last axis (j) in the kernel's order: lane l of the
-    pair's LANES adds the terms j = l, l + LANES, ... to 0 in turn, then
-    the lanes' partials meet in an xor butterfly (l + (l ^ LANES / 2),
-    then ^ LANES / 4, ..., ^ 1)."""
-    t = torch.nn.functional.pad(t, (0, -t.shape[-1] % LANES))
-    t = t.unflatten(-1, (-1, LANES))
+    pair's ``lanes`` adds the terms j = l, l + lanes, ... to 0 in turn,
+    then the lanes' partials meet in an xor butterfly (l + (l ^ lanes /
+    2), then ^ lanes / 4, ..., ^ 1)."""
+    t = torch.nn.functional.pad(t, (0, -t.shape[-1] % lanes))
+    t = t.unflatten(-1, (-1, lanes))
     acc = torch.zeros_like(t[..., 0, :])
     for i in range(t.shape[-2]):
         acc = acc + t[..., i, :]
-    lane = torch.arange(LANES, device=t.device)
-    off = LANES // 2
+    lane = torch.arange(lanes, device=t.device)
+    off = lanes // 2
     while off:
         acc = acc + acc[..., lane ^ off]
         off //= 2
