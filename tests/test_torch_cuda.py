@@ -1331,14 +1331,122 @@ def test_stonemask_kernel_edges(cuda, fs):
 
 
 def test_stonemask_kernel_largest_buffer(cuda):
-    """max_len at the wrapper's limit (a warp's buffers 128 KB: one warp a
-    block, opted in past 48 KB) gives what JAX's max_len gives."""
+    """max_len at the wrapper's limit (which sizes nothing in the kernel)
+    gives what JAX's max_len gives."""
     from world_tpu_torch.ops import stonemask
 
     x, pos, f0 = stonemask_dio(22050, 4, cuda)
     got, _ = check_stonemask(x, pos, f0, 22050, stonemask.MAX_LEN)
     want, _ = check_stonemask(x, pos, f0, 22050)
     assert torch.equal(got, want)
+
+
+def frames_of_windows(fs, win_lens, seed=0, seconds=1.0):
+    """(x (1, L), pos (1, N), f0 (1, N)) numpy float32: each window
+    length of ``win_lens`` at 3 seeded positions of a seeded glide (one
+    clamped at the signal's start), f0 = 1.5 fs / (hw - 1/2) for hw =
+    (win_len - 1) / 2, which the kernel's float32 half-width takes to hw
+    (checked)."""
+    from world_tpu_torch.tools.stonemask_bench import glide
+
+    x, _ = glide(fs, seed, seconds)
+    hw = (np.repeat(np.asarray(win_lens), 3) - 1) // 2
+    f0 = (1.5 * fs / (hw - 0.5)).astype(np.float32)
+    pos = np.random.RandomState(seed).uniform(0, seconds, len(hw))
+    pos[::3] = 0.001
+    got = (1.5 * torch.full((), float(fs)) / torch.as_tensor(f0)
+           + 1.0).to(torch.int64).numpy()
+    assert (got == hw).all()
+    return x[None], pos.astype(np.float32)[None], f0[None]
+
+
+@pytest.mark.parametrize("fs", [22050, 48000])
+def test_stonemask_kernel_chunk_edges(cuda, fs):
+    """Every usable window length beside a multiple of the 32-sample
+    chunk (win_len = 32 k - 1 or 32 k + 1: a window is odd, so these end
+    one sample short of a chunk or one past it, where the look-ahead
+    and the carried neighbour meet the window's edge): 0 frames differ
+    from the plain version."""
+    from world_tpu_torch.ops.stonemask import usable_frames, window_bound
+
+    lens = [n for k in range(2, window_bound(fs) // 32 + 2)
+            for n in (32 * k - 1, 32 * k + 1) if n <= window_bound(fs)]
+    x, pos, f0 = (torch.as_tensor(a, device=cuda)
+                  for a in frames_of_windows(fs, lens))
+    usable = usable_frames(f0, torch.full((), float(fs), device=cuda))
+    assert int(usable.sum()) >= 3 * len(lens)
+    got, want = check_stonemask(x, pos, f0, fs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fs", [8000, 22050, 44100, 48000])
+def test_stonemask_kernel_longest_window(cuda, fs):
+    """The longest window a usable frame takes (F0 at the least float32
+    above 40 Hz; window_bound(fs), or 2 below it where 1.5 fs / 40 is a
+    whole number), at 20 seeded positions and both signal edges: 0
+    frames differ from the plain version."""
+    from world_tpu_torch.ops.stonemask import window_bound
+    from world_tpu_torch.tools.stonemask_bench import glide
+
+    x, _ = glide(fs, 5)
+    f0 = np.full(22, np.nextafter(np.float32(40), np.float32(50)))
+    pos = np.random.RandomState(5).uniform(0, 1, 22).astype(np.float32)
+    pos[:2] = 0.0, (len(x) - 1) / fs
+    hw = int((1.5 * torch.full((), float(fs)) / torch.as_tensor(f0[:1])
+              + 1.0).to(torch.int64))
+    assert window_bound(fs) - 2 <= 2 * hw + 1 <= window_bound(fs)
+    got, want = check_stonemask(*(torch.as_tensor(a[None], device=cuda)
+                                  for a in (x, pos, f0)), fs)
+    assert torch.equal(got, want) and (got > 0).all()
+
+
+def test_stonemask_kernel_more_frames_than_resident_warps(cuda):
+    """64 rows x 401 frames of seeded glides at 22.05 kHz (F0s 2% about
+    their pitch), more frames than the card holds warps at once: 0
+    frames differ from the plain version."""
+    from world_tpu_torch.tools.stonemask_bench import glide, launch_shape
+
+    fs, n_frames = 22050, 401
+    rs = np.random.RandomState(64)
+    x, f0 = [], []
+    for seed in range(64):
+        xs, pitch = glide(fs, seed, seconds=2.0)
+        x.append(xs)
+        at = np.minimum((np.arange(n_frames) * 0.005 * fs).astype(int),
+                        len(xs) - 1)
+        f0.append(pitch[at] * (1.0 + 0.02 * rs.randn(n_frames)))
+    pos = np.tile(np.arange(n_frames) * 0.005, (64, 1))
+    x, pos, f0 = (torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+                  for a in (x, pos, f0))
+    shape = launch_shape(torch, f0.shape, cuda)
+    assert f0.numel() > shape["warps_per_sm"] * shape["sms"]
+    got, want = check_stonemask(x, pos, f0, fs)
+    assert torch.equal(got, want) and (got > 0).sum() > 60 * n_frames
+
+
+def test_stonemask_kernel_grid_stride(cuda):
+    """More frames than the grid has warps (one row, the grid's warps +
+    500 frames, usable ones at the start and past the first stride, the
+    rest unusable): the warps walk on; 0 frames differ from the plain
+    version, and the unusable frames are 0."""
+    from world_tpu_torch.tools.stonemask_bench import glide, launch_shape
+
+    fs = 22050
+    x, pitch = glide(fs, 9)
+    shape = launch_shape(torch, (1, 1 << 30), cuda)
+    stride = shape["blocks"] * shape["warps_per_block"]
+    F = stride + 500
+    assert launch_shape(torch, (1, F), cuda)["blocks"] == shape["blocks"]
+    f0 = np.zeros((1, F), np.float32)
+    pos = np.zeros((1, F), np.float32)
+    live = np.r_[0:50, stride:F]
+    at = np.random.RandomState(9).randint(0, len(x), len(live))
+    f0[0, live] = pitch[at]
+    pos[0, live] = at / fs
+    got, want = check_stonemask(*(torch.as_tensor(a, device=cuda)
+                                  for a in (x[None], pos, f0)), fs)
+    assert torch.equal(got, want)
+    assert (got[0, live] > 0).all() and int((got != 0).sum()) == len(live)
 
 
 def test_stonemask_never_syncs(cuda):
@@ -1381,8 +1489,8 @@ def test_stonemask_plain_never_runs_on_card(cuda, monkeypatch):
 
 def test_stonemask_rejects_bad_inputs(cuda):
     """float64, a CPU tensor beside card tensors, and non-contiguous
-    inputs raise; so does a launch the kernel refuses (a warp's buffers
-    past the card's shared memory)."""
+    inputs raise; so does a launch the kernel refuses (a max_len past its
+    float32 sample indices, kMaxLen = 2^24)."""
     import ctypes
 
     from world_tpu_torch.ops import stonemask
@@ -1403,4 +1511,4 @@ def test_stonemask_rejects_bad_inputs(cuda):
     with pytest.raises(RuntimeError):
         _cuda.launch("stonemask_refine", entry, x.device, x.data_ptr(),
                      pos.data_ptr(), f0.data_ptr(), f0.data_ptr(), 2,
-                     x.shape[1], f0.shape[1], 1 << 20, 22050.0)
+                     x.shape[1], f0.shape[1], (1 << 24) + 1, 22050.0)

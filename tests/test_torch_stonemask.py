@@ -307,3 +307,85 @@ def test_32_lane_sum_is_the_kernel_order(n):
         off //= 2
     np.testing.assert_array_equal(
         warp_sum(torch.as_tensor(t), lanes).numpy(), acc[:, 0])
+
+
+def lookahead_walk(w, lanes=32):
+    """The kernel's walk of one pass over a window ``w`` (win_len,)
+    (csrc/stonemask.cu: fix_f0), in numpy: lane l takes i = 32 k + l, w
+    computed one chunk ahead (zero past the window), w[i - 1] by
+    __shfl_up_sync with lane 0 taking the previous chunk's lane 31 from
+    a register, w[i + 1] by __shfl_down_sync with lane 31 taking the
+    next chunk's lane 0.  Returns (prv, cur, nxt) as the lanes hold them
+    at each i < win_len."""
+    n = len(w)
+
+    def window(i):
+        return np.where(i < n, w[np.minimum(i, n - 1)], np.float32(0))
+
+    lane = np.arange(lanes)
+    cur, ahead = window(lane), window(lane + lanes)
+    carry = np.float32(0)
+    chunks = -(-n // lanes)
+    out = np.zeros((3, chunks * lanes), np.float32)
+    for k in range(chunks):
+        prv = cur[np.maximum(lane - 1, 0)]      # __shfl_up_sync(w, 1)
+        nxt = cur[np.minimum(lane + 1, lanes - 1)]  # __shfl_down_sync
+        prv[0] = carry
+        nxt[-1] = ahead[0]
+        carry = cur[-1]
+        i = k * lanes + lane
+        out[:, i] = prv, cur, nxt
+        cur, ahead = ahead, window(i + 2 * lanes)
+    return out[:, :n]
+
+
+@pytest.mark.parametrize("win_len", [3, 31, 33, 63, 65, 95, 97, 127, 129,
+                                     595, 1655, 3603])
+def test_lookahead_neighbours_are_the_window_shifted(win_len):
+    """The kernel's look-ahead walk gives every i < win_len (lanes 0 and
+    31, the first and the last chunk among them) w[i - 1], w[i], w[i + 1]
+    with zeros outside the window, and its difference -(nxt - prv) / 2 is
+    the plain version's, bit for bit, on a frame of that window (x = 1,
+    so that ``windowed`` returns the window and its difference)."""
+    fs = 48000.0
+    hw = (win_len - 1) // 2
+    f0 = torch.tensor([1.5 * fs / (hw - 0.5)], dtype=torch.float32)
+    x = torch.ones((1, 4 * win_len + 64))
+    pos = torch.tensor([2 * win_len / fs], dtype=torch.float32)
+    fs_t = torch.full((), fs)
+    assert int((1.5 * fs_t / f0 + 1.0).to(torch.int64)) == hw
+    w, d, _ = stonemask.windowed(x, torch.zeros(1, dtype=torch.int64), pos,
+                                 f0, fs_t)
+    assert (w[0, win_len:] == 0).all() and (d[0, win_len:] == 0).all()
+    w, d = w[0, :win_len].numpy(), d[0, :win_len].numpy()
+    prv, cur, nxt = lookahead_walk(w)
+    z = np.zeros(1, np.float32)
+    np.testing.assert_array_equal(cur, w)
+    np.testing.assert_array_equal(prv, np.concatenate([z, w[:-1]]))
+    np.testing.assert_array_equal(nxt, np.concatenate([w[1:], z]))
+    np.testing.assert_array_equal(-(nxt - prv) * np.float32(0.5), d)
+
+
+def kernel_constants():
+    """The float64 constants of csrc/stonemask.cu's sincos_once."""
+    import re
+    src = open(os.path.join(HERE, "..", "world_tpu_torch", "csrc",
+                            "stonemask.cu")).read()
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"constexpr double (k\w+) = ([-+0-9.e]+);", src)}
+
+
+def test_kernel_sincos_reduction_is_exact():
+    """kPio2Hi has 45 significant bits, kPio2Hi + kPio2Lo is pi / 2 to
+    1e-30, and up to 400 radians the quadrant stays below 256, so that q
+    kPio2Hi is exact (45 + 8 bits) and so is a - q kPio2Hi."""
+    from fractions import Fraction
+
+    k = kernel_constants()
+    hi = Fraction(k["kPio2Hi"])
+    assert (hi * 2 ** 44).denominator == 1
+    pio2 = Fraction(314159265358979323846264338327950288419716939937510,
+                    2 * 10 ** 50)
+    assert abs(hi + Fraction(k["kPio2Lo"]) - pio2) < Fraction(1, 10 ** 30)
+    assert round(400.0 * k["kTwoOverPi"]) < 256
+    assert k["kRoundInt"] == 1.5 * 2.0 ** 52

@@ -41,8 +41,9 @@ def _fft_sizes(fs):
 
 
 def max_len(fs):
-    """The float32 path's window buffer, JAX's max(sizes) // 2: at least
-    the longest window of a usable frame."""
+    """The float32 path's window bound, JAX's window buffer max(sizes) //
+    2: at least the longest window of a usable frame (the kernel writes
+    NaN for a longer one)."""
     return max(_fft_sizes(fs)) // 2
 
 

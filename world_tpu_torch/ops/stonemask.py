@@ -8,7 +8,8 @@
     signals at rate ``fs_t`` (a Python float), ``positions`` the frame
     times in seconds, ``f0`` the F0 track to refine; ``max_len`` is the
     window buffer JAX sizes by the fft sizes (max(sizes) // 2), at least
-    the longest window of a usable frame (window_bound).  Returns the
+    the longest window of a usable frame (window_bound); the kernel
+    sizes nothing by it and writes NaN for a longer window.  Returns the
     refined F0 (B, F): 0 where the frame is not usable (f0 <= 40 or
     f0 > fs / 12, or NaN), the input F0 where the refinement moved it by
     more than 20% or its first pass failed.
@@ -32,9 +33,13 @@ mean, in JAX's order: first at f = f0 with 2 bins (t0), then, unless t0
 <= 0 or t0 > 2 f0, at f = t0 with 6 bins.
 
 The transcendentals: each cos / sin takes its float32 argument, is
-evaluated in float64 and rounded to float32 once.  JAX rounds the same
-float32 arguments (the phases stay below ~120 rad) and takes float32
-cos / sin of them, which land within an ulp of these.  exp2 is JAX's
+evaluated in float64 and rounded to float32 once (the plain version by
+torch's cos / sin, the kernel by its own branch-free Cody-Waite reduction
+and fdlibm polynomials, csrc/stonemask.cu: sincos_once; the two part only
+where a float64 value lies within its error of a float32 rounding
+boundary).  JAX rounds the same float32 arguments (the phases of a frame's
+samples stay below ~240 rad) and takes float32 cos / sin of them, which
+land within an ulp of these.  exp2 is JAX's
 own lowering, exp(ln 2 e) with ln 2 e a float32 product, its exp taken
 so too: that is not the power of two everywhere (2^13 comes out 4 ulps
 above 8192, 2^15 8 below 32768), and taking 2^e instead moves the
@@ -44,7 +49,8 @@ kHz) by up to 2e-4 relative from JAX's.
 Each dot is summed in the kernel's order: lane l of a warp's 32 adds the
 terms i = l, l + 32, ... in turn, then the lanes meet in an xor
 butterfly (refine.warp_sum(t, LANES)).  The plain version sums so too, so
-that the kernel and the plain version agree on the card.
+that the kernel and the plain version agree on the card (0 frames differ
+on every recorded and seeded input, tests/test_torch_cuda.py).
 
 On a CUDA tensor the wrapper launches the kernel (always; there is no
 fallback): a build or launch failure raises.  On a CPU tensor it runs
@@ -64,9 +70,9 @@ from .matlab import matlab_round
 from .refine import warp_sum
 
 LANES = 32                       # lanes a frame (csrc/stonemask.cu: a warp)
-# Most max_len the kernel takes: a warp holds 2 max_len floats of shared
-# memory, and one warp's must fit a block's 227 KB.
-MAX_LEN = 16384
+# Most max_len the kernel takes: it takes a window's sample index as a
+# float32, exact below 2^24 (csrc/stonemask.cu: kMaxLen).
+MAX_LEN = 1 << 24
 # The plain version's frames a chunk: its largest tensors are (frames, 6,
 # window), ~6 MB each at 48 kHz.
 PLAIN_CHUNK = 256

@@ -17,7 +17,8 @@ form only), so that its kernels, or a checkout's eager pass where it has
 no remove kernel, are timed by the same code; ``--inputs`` saves the
 recorded tensors to FILE, or loads them where FILE exists, so that every
 checkout is timed on the same tensors.  ``--sass`` counts the
-instructions of each kernel in the checkout's build (cuobjdump -sass);
+instructions of each kernel in the checkout's build (cuobjdump -sass)
+and reads its registers and spills (``sass_counts``);
 ``--longform`` times analyze_long on that 300 s signal after a warm-up:
 wall s, audio seconds per wall second, peak device memory.
 
@@ -76,6 +77,9 @@ GATES = {"margin": 1e-4, "f0_rel": 1e-5, "score_rel": 1e-3}
 # stores, calls (slow paths), warp reductions.
 SASS_CLASSES = ("FCHK", "MUFU.RCP", "MUFU.RSQ", "DFMA", "DMUL", "SHFL",
                 "LDS", "STS", "LDL", "STL", "CALL", "REDUX")
+# float64 SASS opcodes: the float64 pipe's arithmetic and comparisons
+# (besides these, every opcode with .F64, a conversion, counts as one).
+F64_PREFIXES = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "DSET")
 
 
 def compare(got, want, f0_floor, f0_ceil):
@@ -289,38 +293,89 @@ def _moved(torch, obj, device):
     return obj
 
 
-def sass_counts(root):
-    """{kernel: {opcode class: count, "instructions": n}} of the checkout
-    ``root``'s refine.cu built for sm_90a with the kernel's flags
-    (cuobjdump -sass of the cubin)."""
-    from world_tpu_torch.ops import _cuda
-
-    src = Path(root) / "world_tpu_torch" / "csrc" / "refine.cu"
-    flags = [f for f in _cuda.NVCC_FLAGS + _cuda.SOURCE_FLAGS["refine"]
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    with tempfile.TemporaryDirectory() as td:
-        cubin = Path(td) / "refine.cubin"
-        subprocess.run([_cuda.nvcc(), *flags, "-cubin", "-o", str(cubin),
-                        str(src)], check=True, capture_output=True)
-        sass = subprocess.run(
-            [str(Path(_cuda.nvcc()).with_name("cuobjdump")), "-sass",
-             str(cubin)], check=True, capture_output=True, text=True).stdout
+def _opcodes(sass):
+    """{function: [opcode, ...]} of cuobjdump -sass output."""
     out, name = {}, None
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = collections.Counter()
+            out[name] = []
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                      line)
         if m and name:
-            op = m.group(1)
-            out[name]["instructions"] += 1
-            for cls in SASS_CLASSES:
-                if op.startswith(cls):
-                    out[name][cls] += 1
-    return {k: dict(v) for k, v in out.items()}
+            out[name].append(m.group(1))
+    return out
+
+
+def _ptxas(log):
+    """{function: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from nvcc -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(root, source="refine", probe=None):
+    """{function: counts} of the checkout ``root``'s csrc/<source>.cu
+    built for sm_90a with the source's flags: ptxas's registers, stack
+    and spills (-Xptxas -v), and from cuobjdump -sass every instruction,
+    the opcode prefixes SASS_CLASSES and the float64 instructions
+    (F64_PREFIXES, and every conversion to or from float64).  ``probe``
+    is the text of another .cu file, ``{source}`` in it standing for the
+    source's path (to #include it); it is built with the same flags and
+    its extern "C" functions are counted too.  A build that fails raises
+    RuntimeError with nvcc's log."""
+    from world_tpu_torch.ops import _cuda
+
+    src = Path(root) / "world_tpu_torch" / "csrc" / f"{source}.cu"
+    flags = [f for f in _cuda.NVCC_FLAGS + _cuda.SOURCE_FLAGS.get(source, ())
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cuobjdump = str(Path(_cuda.nvcc()).with_name("cuobjdump"))
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        builds = [(src, False)]
+        if probe is not None:
+            path = Path(td) / "probe.cu"
+            path.write_text(probe.replace("{source}", str(src)))
+            builds.append((path, True))
+        for path, is_probe in builds:
+            cubin = Path(td) / f"{path.stem}.cubin"
+            proc = subprocess.run([_cuda.nvcc(), *flags, "-cubin", "-o",
+                                   str(cubin), str(path)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc {path.name}:\n{proc.stderr}")
+            sass = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                                  check=True, capture_output=True,
+                                  text=True).stdout
+            ptxas = _ptxas(proc.stdout + proc.stderr)
+            for fn, ops in _opcodes(sass).items():
+                if is_probe and fn.startswith("_Z"):
+                    continue  # the source's own functions, built again
+                c = collections.Counter(instructions=len(ops))
+                for op in ops:
+                    if op.startswith(F64_PREFIXES) or ".F64" in op:
+                        c["float64"] += 1
+                    c.update(cls for cls in SASS_CLASSES
+                             if op.startswith(cls))
+                out[fn] = dict(ptxas.get(fn, {}), **c)
+    return out
 
 
 def longform(torch, seconds=300.0):

@@ -1,12 +1,23 @@
 """Time StoneMask's float32 refinement kernel (csrc/stonemask.cu:
 stonemask_refine) on the card against its plain version and its bounds.
 
-    python world_tpu_torch/tools/stonemask_bench.py [--out FILE]
+    python world_tpu_torch/tools/stonemask_bench.py [--root DIR]
+        [--inputs FILE] [--sass] [--out FILE]
 
 records the wrapper's arguments from 16-row float32 Dio batch steps of
 the golden utterances (rows at gains 0.5-1.5) at 22.05 and 48 kHz
-(contour_bench.path_calls) and ``measure``s the kernel on them, one JSON
-line per case, with the kernel's launches in its step.
+(contour_bench.path_calls: dio_22k, dio_48k) and from the first batch of
+chip_smoke.py's corpus (corpus_batched: ``corpus_first_batch``), and
+``measure``s the kernel on them, one JSON line per case, with the
+kernel's launches in its step and the launch's shape (``launch_shape``).
+``--root`` imports world_tpu_torch from another checkout (for example
+the parent commit, unpacked with ``git archive``; the script form only),
+so that its kernel is timed by the same code; ``--inputs`` saves the
+recorded tensors to FILE, or loads them where FILE exists, so that every
+checkout is timed on the same tensors.  ``--sass`` reports the
+kernel's registers and spills (ptxas) and SASS instruction counts, and
+those of ``term_probe``, one (bin, sample) term (TERM_PROBE), whose
+float64 instructions are a term's (refine_bench.sass_counts).
 
 chip_smoke.py records the wrapper's arguments on the paths that call it
 and hands them to ``measure``, which holds the kernel to its plain
@@ -33,7 +44,9 @@ are numpy only).
 
 import argparse
 import contextlib
+import ctypes
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -53,10 +66,26 @@ BIN_OPS = 9
 TRIG_OPS = 20
 # The kernel against its plain version on the card: VUV equal on every
 # frame and F0 within f0_rel (the port's gate against JAX).  Both sum in
-# one order, so they part only where a float64 transcendental of the
-# kernel and of torch's round to different float32s; on every recorded
-# call they were bit-equal (PERF.md).
+# one order, so they part only where a float64 cos / sin of the kernel
+# (its own polynomials) and of torch round to different float32s; on
+# every recorded call they were bit-equal (PERF.md).
 GATES = {"f0_rel": 1e-6}
+# One (bin, sample) term as the kernel computes it, built beside the
+# source by --sass (refine_bench.sass_counts' probe): its float64
+# instructions are a term's.  A source without sincos_once fails to build.
+TERM_PROBE = """
+#include "{source}"
+extern "C" __global__ void term_probe(const float* a, const float* m,
+                                      const float* d, float* acc) {
+  const int t = threadIdx.x;
+  float s, c;
+  sincos_once(a[t], &s, &c);
+  acc[4 * t] += c * m[t];
+  acc[4 * t + 1] += s * m[t];
+  acc[4 * t + 2] += c * d[t];
+  acc[4 * t + 3] += s * d[t];
+}
+"""
 
 
 def glide(fs, seed, seconds=1.0):
@@ -203,22 +232,72 @@ def recording(recorded):
         stonemask.stonemask_refine = real
 
 
+def corpus_first_batch():
+    """The first batch chip_smoke.py's corpus runner dispatches (its
+    sorted first bucket, 22.05 kHz at 2 s): batch_invariance's
+    corpus_signals' first 16 files at 22.05 kHz of at most 44,100
+    samples, as 16-bit wavs store them, zero rows past the last, (16,
+    44100) float32."""
+    from world_tpu_torch.tools.batch_invariance import (
+        BATCH, BUCKETS, as_wav_samples, corpus_signals)
+
+    fs = 22050
+    b = int(np.ceil(BUCKETS[0] * fs))
+    rows = np.zeros((BATCH, b), np.float32)
+    picked = [x for f, x in corpus_signals() if f == fs and len(x) <= b]
+    for j, x in enumerate(picked[:BATCH]):
+        rows[j, :len(x)] = as_wav_samples(x)
+    return fs, rows
+
+
 def record_inputs(torch):
     """{case: {"call": (args, kwargs), "launches": n}} on the card: the
     wrapper's arguments in path_calls' float32 Dio steps (dio_22k,
-    dio_48k) and the kernel's launches in each step."""
+    dio_48k) and in the Dio step of the corpus's first batch
+    (corpus_batched), and the kernel's launches in each step."""
+    from world_tpu_torch.parallel import pipeline
     from world_tpu_torch.tools import contour_bench
 
+    recs = contour_bench.path_calls(torch, recording, methods=("dio",))
+    fs, rows = corpus_first_batch()
+    with recording({}) as rec:
+        pipeline.make_batch_step(fs, rows.shape[1], f0_method="dio",
+                                 with_synthesis=False, device="cuda")(rows)
+    recs["corpus_batched"] = rec
     cases = {case: {"call": rec["stonemask_refine"],
                     "launches": rec["stonemask_launches"]}
-             for case, rec in contour_bench.path_calls(
-                 torch, recording, methods=("dio",)).items()}
+             for case, rec in recs.items()}
     torch.cuda.synchronize()
     return cases
 
 
+def launch_shape(torch, shape, device):
+    """The kernel's launch for (B, F) = ``shape`` frames on the CUDA
+    ``device`` as its source's stonemask_launch_shape gives it: warps a
+    block, resident blocks an SM, resident warps an SM, the SMs, the
+    grid's blocks."""
+    from world_tpu_torch.ops import _cuda
+
+    fn = _cuda.entry("stonemask", "stonemask_launch_shape",
+                     (ctypes.c_int,) * 2 + (ctypes.POINTER(ctypes.c_int),) * 4)
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        rc = fn(*shape, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"stonemask_launch_shape: cudaError {rc}")
+    warps, per_sm, sms, blocks = (v.value for v in vals)
+    return {"warps_per_block": warps, "blocks_per_sm": per_sm,
+            "warps_per_sm": warps * per_sm, "sms": sms, "blocks": blocks}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=None,
+                    help="checkout to import world_tpu_torch from")
+    ap.add_argument("--inputs", default=None,
+                    help="save the recorded tensors here, or load them")
+    ap.add_argument("--sass", action="store_true",
+                    help="also count the kernel's SASS instructions")
     ap.add_argument("--out", default=None, help="also append lines here")
     args = ap.parse_args(argv)
     import torch
@@ -226,17 +305,38 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("stonemask_bench: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    root = os.path.abspath(args.root or REPO)
+    sys.path.insert(0, root)
+    import world_tpu_torch
+    if Path(world_tpu_torch.__file__).resolve().parents[1] != Path(root):
+        print("stonemask_bench: --root needs the script form, python "
+              "world_tpu_torch/tools/stonemask_bench.py", file=sys.stderr)
+        return 2
     from world_tpu_torch.tools import ola_bench as bench
+    from world_tpu_torch.tools.refine_bench import _moved, sass_counts
 
-    cases = record_inputs(torch)
+    if args.inputs and os.path.exists(args.inputs):
+        cases = _moved(torch, torch.load(args.inputs), "cuda")
+    else:
+        cases = record_inputs(torch)
+        if args.inputs:
+            torch.save(_moved(torch, cases, "cpu"), args.inputs)
     card = bench.card_name()
     flush = bench.l2_flush(torch)
+    lines = []
+    for case, rec in cases.items():
+        call_args, kwargs = rec["call"]
+        lines.append({"root": root, "card": card, "case": case,
+                      "launches_per_step": rec["launches"],
+                      "launch": launch_shape(torch, call_args[2].shape,
+                                             call_args[2].device),
+                      **measure(torch, call_args, kwargs, flush)})
+    if args.sass:
+        lines.append({"root": root, "card": card, "sass": sass_counts(
+            root, "stonemask", probe=TERM_PROBE)})
     with open(args.out, "a") if args.out else contextlib.nullcontext() as f:
-        for case, rec in cases.items():
-            text = json.dumps({"card": card, "case": case,
-                               "launches_per_step": rec["launches"],
-                               **measure(torch, *rec["call"], flush)})
+        for line in lines:
+            text = json.dumps(line)
             print(text, flush=True)
             if f:
                 f.write(text + "\n")
