@@ -189,7 +189,9 @@ reliability-pass, StoneMask and state-scan launches summed over the four batch
 runs, exact_path, the cli_* phases and the mesh phases, general launches over the streaming, long-form and cli_*
 phases, iir_zero_phase and randn_span launches over exact_path and the
 cli_* phases; lti_state_scan's entry also names longform_48k's 3-state
-case beside main_22k's; each entry says how its device_ms was read),
+case beside main_22k's; harvest_remove_unreliable's gives its device ms
+and bound share at main_48k, longform_48k and exact_22k beside
+main_22k's; each entry says how its device_ms was read),
 the nvidia-smi line, and the final
 {"ok": true, "device": ...} line.  Any failed gate raises: the script
 exits non-zero and prints no final line.  Without a CUDA device, or
@@ -2342,7 +2344,10 @@ def main():
                   source="world_tpu_torch/csrc/refine.cu",
                   replaces="world_tpu/models/harvest.py:602-621"),
              **{f"{tag}_device_ms": removes[tag]["device_ms"]
-                for tag in ("main_48k", "longform_48k", "exact_22k")}),
+                for tag in ("main_48k", "longform_48k", "exact_22k")},
+             **{f"{tag}_bound_share": removes[tag]["bound_share"]
+                for tag in ("main_22k", "main_48k", "longform_48k",
+                            "exact_22k")}),
         # No Pallas kernel: the JAX package's float32 StoneMask
         # (_refine_direct under vmap over the frames).
         dict(line("stonemask_refine", stonemasks["dio_22k"],

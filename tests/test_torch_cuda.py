@@ -1236,10 +1236,10 @@ def test_remove_plain_never_runs_on_card(cuda, monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_remove_kernel_slots_past_48k_shared_memory(cuda, dtype):
-    """M = 1000: eight warps' neighbour lists (2 M values each) pass 48 KB
-    of shared memory in float64 (opted in at launch); M = 20000 in
-    float64: one warp's list passes what a block may hold, and the
-    launch raises."""
+    """M = 1000: a tile of one frame and its two halo frames (values,
+    lists and scores) passes 48 KB of shared memory in float64 (opted in
+    at launch); M = 20000 in float64: three frames pass what a block may
+    hold, and the launch raises."""
     cands, scores = remove_inputs(2, 12, 1000, dtype, seed=9)
     check_remove(cands, scores, cuda)
     if dtype == "float64":
@@ -1259,6 +1259,137 @@ def test_remove_launch_failure_raises(cuda):
     with pytest.raises(RuntimeError):
         _cuda.launch("harvest_remove_unreliable", entry, t.device,
                      *[t.data_ptr()] * 4, 1, 3, 8, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("M", [105, 200])
+def test_remove_kernel_full_frames(cuda, dtype, M):
+    """Frames with every slot nonzero (M candidates: several rounds of a
+    lane a candidate at M = 200), beside frames of candidates close to
+    theirs and frames of none."""
+    cands, scores = remove_inputs(2, 40, M, dtype, seed=M + 16)
+    rng = np.random.default_rng(M)
+    full = torch.as_tensor(rng.uniform(70.0, 800.0, (2, 12, M)).astype(dtype))
+    cands[:, 5:17] = full
+    cands[:, 20:23] = full[:, :3] * (1.0 + 0.04 * torch.as_tensor(
+        rng.uniform(-1.0, 1.0, (2, 3, M)).astype(dtype)))
+    cands[:, 10, 0] = 5000.0   # far from every neighbour: zeroed
+    cands[:, 11, M - 1] = 10.0
+    scores[:, 5:23] = 3.0
+    got, _ = check_remove(cands, scores, cuda)
+    assert (got[0][:, 10, 0] == 0).all() and (got[0][:, 11, M - 1] == 0).all()
+    assert (got[0][:, 6:16] != 0).sum() > 0.9 * 2 * 10 * M
+
+
+def remove_tile(M, elem):
+    """Frames a tile of the remove kernel at M slots of ``elem`` bytes in
+    a call with a tile an SM: csrc/refine.cu's remove_tile and
+    remove_layout, its constants read from the source."""
+    import re
+    src = open(os.path.join(os.path.dirname(refine.__file__), "..", "csrc",
+                            "refine.cu")).read()
+
+    def const(name):
+        return eval(re.search(rf"constexpr \w+(?: \w+)? {name} = ([^;]+);",
+                              src).group(1))
+
+    walk, tile = const("kWalk"), const("kTileMost")
+
+    def layout_bytes(t):
+        g = t + 2
+        b = (g * M * elem + 31) // 16 * 16
+        b = (b + t * M * elem + 31) // 16 * 16
+        b += g * (-(-M // walk) * walk) * elem + 4 * g + 4 * (t * M // 32 + 2)
+        return (b + 2 * g * M + 15) // 16 * 16
+
+    while tile > 1 and layout_bytes(tile) > const("kTileBytes"):
+        tile //= 2
+    return tile
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("edge", ["T-1", "T", "T+1", "2T+1"])
+def test_remove_kernel_tile_edges(cuda, dtype, edge):
+    """Rows of F = T - 1, T, T + 1 and 2 T + 1 frames for the kernel's T at
+    M = 105 (16 in both types), as many rows as the card has SMs and 8
+    more, so that the kernel keeps that T: tile edges fall inside rows and
+    rows end inside tiles.  (Fewer rows take smaller tiles.)"""
+    T = remove_tile(105, 4 if dtype == "float32" else 8)
+    assert T == 16
+    F = {"T-1": T - 1, "T": T, "T+1": T + 1, "2T+1": 2 * T + 1}[edge]
+    B = torch.cuda.get_device_properties(cuda).multi_processor_count + 8
+    cands, scores = remove_inputs(B, F, 105, dtype, seed=F + 1600)
+    check_remove(cands, scores, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("F", [5, 8, 9, 17, 33])
+def test_remove_kernel_small_calls(cuda, dtype, F):
+    """Three rows: fewer tiles than SMs, so the kernel halves its tiles
+    (down to a frame and its two halo frames)."""
+    cands, scores = remove_inputs(3, F, 105, dtype, seed=F + 1700)
+    check_remove(cands, scores, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_remove_kernel_more_tiles_than_grid(cuda, dtype):
+    """(4, 5000, 105): more tiles than the grid's blocks, so each block
+    walks several."""
+    cands, scores = remove_inputs(4, 5000, 105, dtype, seed=5000)
+    check_remove(cands, scores, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_remove_kernel_unaligned_views(cuda, dtype):
+    """Contiguous views that start off a 16-byte boundary (rows 1 and 2
+    of a batch whose rows are not a multiple of 16 bytes), for both
+    inputs and for one of them: the kernel copies element by element
+    there, and equals the plain version."""
+    cands, scores = remove_inputs(3, 7, 105, dtype, seed=77)
+    c, s = cands.to(cuda), scores.to(cuda)
+    cv, sv = c[1:], s[1:]
+    assert cv.is_contiguous() and cv.data_ptr() % 16 != 0
+    check_remove(cv, sv, cuda)
+    check_remove(cv.clone(), sv, cuda)
+
+
+def test_remove_threshold_every_float32(cuda):
+    """The kernel's threshold over every positive finite float32, on the
+    card: fl(t / a) is not above 0.05f and fl(nextup(t) / a) is (so
+    !(d > t) == !(d / a > 0.05f) for every d), and t equals the plain
+    version's on the card."""
+    limit = torch.tensor(0.05, dtype=torch.float32, device=cuda)
+    chunk = 1 << 27
+    before = refine.remove_threshold.launches
+    n_chunks = 0
+    for start in range(1, 0x7F800000, chunk):
+        bits = torch.arange(start, min(start + chunk, 0x7F800000),
+                            dtype=torch.int32, device=cuda)
+        a = bits.view(torch.float32)
+        t = refine.remove_threshold(a)
+        up = (t.view(torch.int32) + 1).view(torch.float32)
+        assert not (t / a > limit).any()
+        assert (up / a > limit).all()
+        assert torch.equal(t, refine.remove_threshold_plain(a))
+        n_chunks += 1
+    assert refine.remove_threshold.launches == before + n_chunks
+
+
+def test_remove_threshold_float64_and_specials(cuda):
+    """Seeded float64 over the whole positive range and the special
+    values (negative, +-inf, NaN) of both types: the kernel's threshold
+    equals the plain version's on the card."""
+    rng = np.random.default_rng(64)
+    bits = rng.integers(1, 0x7FF0000000000000, 1 << 22, dtype=np.int64)
+    a64 = torch.as_tensor(bits).view(torch.float64).to(cuda)
+    assert torch.equal(refine.remove_threshold(a64),
+                       refine.remove_threshold_plain(a64))
+    for dt in (torch.float32, torch.float64):
+        sp = torch.tensor([-1.0, -float("inf"), float("inf"), float("nan"),
+                           torch.finfo(dt).max, torch.finfo(dt).tiny],
+                          dtype=dt, device=cuda)
+        assert torch.equal(refine.remove_threshold(sp),
+                           refine.remove_threshold_plain(sp))
 
 
 # ------------------------------------------- StoneMask's float32 refinement

@@ -442,3 +442,141 @@ def test_remove_on_cpu_launches_nothing_and_rejects():
         refine.remove_unreliable(c[0], s[0])
     with pytest.raises(ValueError):
         refine.remove_unreliable(c, s[:, :-1])
+
+
+# ------------------------------------------- the remove kernel's threshold
+
+def _ulp(x, k):
+    """x moved by k units in the last place (x >= 0 finite)."""
+    it = torch.int32 if x.dtype == torch.float32 else torch.int64
+    return (x.view(it) + k).view(x.dtype)
+
+
+def _threshold_cases(case, dtype):
+    """(a, d) float tensors of ``dtype``, one pair an element."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    if case == "seeded":
+        # a over every positive finite value (uniform in the bits, so
+        # subnormals, the smallest and the largest finite value too); d
+        # at t(a), one unit in the last place to either side, and seeded.
+        if dtype == "float32":
+            bits = rng.integers(1, 0x7F800000, 200_000, dtype=np.int64)
+            a = torch.as_tensor(bits.astype(np.int32)).view(tdt)
+        else:
+            bits = rng.integers(1, 0x7FF0000000000000, 200_000,
+                                dtype=np.int64)
+            a = torch.as_tensor(bits).view(tdt)
+        fin = torch.finfo(tdt)
+        a = torch.cat([a, torch.tensor([fin.tiny, fin.smallest_normal / 2,
+                                        fin.max, 1.0, 100.0, 105.0],
+                                       dtype=tdt),
+                       _ulp(torch.zeros(1, dtype=tdt), 1)])
+        t = refine.remove_threshold_plain(a)
+        scaled = a * torch.as_tensor(rng.uniform(0.0, 0.1, a.numel()),
+                                     dtype=tdt)
+        d = torch.cat([t, _ulp(t, 1), _ulp(t.clamp(min=fin.tiny), -1),
+                       scaled])
+        return a.repeat(4), d
+    if case == "ratios":
+        # 100 / 105 and 20 / 21 (exactly 5% of a apart), and one step of
+        # the type past 105: as remove_inputs plants them, both ways.
+        past = np.nextafter(np.array(105.0, dtype), np.array(200.0, dtype))
+        pairs = [(100.0, 105.0), (105.0, 100.0), (20.0, 21.0),
+                 (21.0, 20.0), (100.0, float(past)), (float(past), 100.0)]
+        a = torch.tensor([p[0] for p in pairs], dtype=tdt)
+        b = torch.tensor([p[1] for p in pairs], dtype=tdt)
+        return a, (a - b).abs()
+    if case == "neighbours":
+        # b at a -+ t(a) and one unit in the last place to either side of
+        # those, d = fl(|a - b|) as the pass takes it.
+        a = torch.as_tensor(rng.uniform(1e-3, 2e3, 20_000), dtype=tdt)
+        t = refine.remove_threshold_plain(a)
+        bs = []
+        for b in (a - t, a + t):
+            bs += [b, _ulp(b, 1), _ulp(b, -1)]
+        return a.repeat(len(bs)), torch.cat([(a - b).abs() for b in bs])
+    # "specials": a negative, +-inf and NaN, against d of every kind.
+    a = torch.tensor([-1.0, -1e-30, -float("inf"), float("inf"),
+                      float("nan"), -100.0], dtype=tdt)
+    d = torch.tensor([0.0, 1.0, 5.0, 1e30, float("inf"), float("nan")],
+                     dtype=tdt)
+    return a.repeat_interleave(d.numel()), d.repeat(a.numel())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["seeded", "ratios", "neighbours",
+                                  "specials"])
+def test_remove_threshold_matches_division(case, dtype):
+    """!(d > t(a)) equals !(d / a > 0.05), the quotient and 0.05 in the
+    type, on every pair of the case; and the CPU wrapper runs the plain
+    version."""
+    a, d = _threshold_cases(case, dtype)
+    limit = torch.tensor(0.05, dtype=a.dtype)
+    t = refine.remove_threshold(a)
+    assert torch.equal(t, refine.remove_threshold_plain(a))
+    assert torch.equal(~(d > t), ~(d / a > limit))
+    if case == "seeded":
+        # t(a) is the largest d that passes: the next one up fails.
+        fin = (a > 0) & torch.isfinite(a)
+        assert not (_ulp(t[fin], 1) / a[fin] > limit).logical_not().any()
+
+
+def test_remove_threshold_on_cpu_launches_nothing_and_rejects():
+    before = refine.remove_threshold.launches
+    refine.remove_threshold(torch.ones(4))
+    assert refine.remove_threshold.launches == before
+    with pytest.raises(TypeError):
+        refine.remove_threshold(torch.ones(4, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        refine.remove_threshold(torch.ones(2, 2))
+
+
+def remove_by_thresholds(cands, scores):
+    """The reliability pass as the kernel tests it: a candidate a is kept
+    where some slot b of frame f - 1 or f + 1 (zeros too) has !(|a - b| >
+    t(a)); over (B, F, M, M) tensors."""
+    t = refine.remove_threshold_plain(cands.flatten()).view_as(cands)
+    nxt = torch.cat([cands[:, 1:], cands[:, -1:]], 1)
+    prv = torch.cat([cands[:, :1], cands[:, :-1]], 1)
+
+    def close(b):
+        d = (cands[..., :, None] - b[..., None, :]).abs()
+        return (~(d > t[..., None])).any(-1)
+
+    j = torch.arange(cands.shape[1])
+    interior = ((j > 0) & (j < cands.shape[1] - 1))[None, :, None]
+    kill = ~(close(prv) | close(nxt)) & interior & (cands != 0.0)
+    return (torch.where(kill, torch.zeros_like(cands), cands),
+            torch.where(kill, torch.zeros_like(scores), scores))
+
+
+def _equal_nan(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(g.nan_to_num(), w.nan_to_num())
+
+
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("B,F,M", REMOVE_SHAPES)
+def test_remove_by_thresholds_matches_plain(dtype, B, F, M, nan):
+    """The pass by thresholds equals remove_unreliable_plain (torch.equal,
+    NaN where it has NaN) on the seeded inputs."""
+    c, s = remove_inputs(B, F, M, dtype, seed=B * 100 + F + M + 16, nan=nan)
+    _equal_nan(remove_by_thresholds(c, s),
+               refine.remove_unreliable_plain(c, s))
+
+
+@pytest.mark.parametrize("name", ["22k", "48k"])
+def test_remove_by_thresholds_on_golden_refine(name):
+    """... and on the golden utterances' refinement outputs, float32 and
+    float64."""
+    y, fs_dec, pos, cands = stage(name)
+    r, s = refine.harvest_refine(y, pos, cands, fs_dec, FLOOR, CEIL,
+                                 hw_max_of(fs_dec))
+    for dt in (torch.float32, torch.float64):
+        rr, ss = r.to(dt), s.to(dt)
+        want = refine.remove_unreliable_plain(rr, ss)
+        _equal_nan(remove_by_thresholds(rr, ss), want)
+        assert ((rr != 0) & (want[0] == 0)).sum() > 0

@@ -71,19 +71,34 @@
 // score) when min over the slots b of frames f - 1 and f + 1 of
 // |a - b| / a exceeds 0.05 (in the tensors' type: 0.05f in float32), as
 // the plain version's torch ops compute it; a NaN anywhere in the minimum
-// keeps the candidate, as torch's and JAX's minimum propagate it.  One
-// warp a (row, frame), grid-stride, loading 128 slots at a time with all
-// their loads in flight: a frame with a nonzero slot compacts the nonzero
-// values of frames f - 1 and f + 1 into a list in shared memory (by
-// ballot), then takes its nonzero slots one at a time and tests 32 list
-// entries at once, one a lane, stopping at the first chunk that holds
-// one within the limit; a zero neighbour gives |a| / a, taken once; a
-// frame without one copies its slots (the other layouts timed: PERF.md
-// §6).  The test is "some |a - b| / a is not above 0.05", which does not
-// depend on the order, so the outputs equal the plain version's.  It
-// reads its inputs and writes new outputs: every frame's test sees the
-// values before any was zeroed.  Templated
-// on float and double (the float64 exact path runs the same pass).
+// keeps the candidate, as torch's and JAX's minimum propagate it.  The
+// test is "some |a - b| / a is not above 0.05", which does not depend on
+// the order, so the outputs equal the plain version's.
+// Design:
+// - A block takes a tile of up to kTileMost consecutive frames of one row
+//   (persistent blocks, as many as the card holds at once, walk the
+//   tiles; a short call takes smaller tiles, so that it has a tile an
+//   SM).  Frames f0 - 1 .. f0 + tile are one contiguous span: it is
+//   copied into shared memory with every copy in flight (cp.async, 16
+//   bytes each), with the tile's scores, so each frame is read once (and
+//   two halo frames a tile), not once as itself and once as each
+//   neighbour's neighbour.
+// - A warp a frame compacts every staged frame once: its nonzero values
+//   in slot order with their slots, and their count (a zero slot where it
+//   is below M).  Each list then serves frames f - 1 and f + 1 both.
+// - The division leaves the walk: per candidate a threshold t(a) with
+//   !(|a - b| > t(a)) exactly when !(|a - b| / a > 0.05) (remove_threshold
+//   says why), taken once a candidate.
+// - A lane a candidate, a warp a frame: each lane walks the lists of f - 1
+//   and f + 1 together (kWalk entries of each a step, 16-byte
+//   shared-memory broadcasts into lists padded with +inf) to its first
+//   close entry, with no shuffle and no vote; the candidates with none set
+//   a kill bit.  The block then writes the tile's outputs in slot order,
+//   16 bytes a thread, as it staged them.
+// It reads its inputs and writes new outputs: every frame's test sees the
+// values before any was zeroed.  Templated on float and double (the
+// float64 exact path runs the same pass).  Other layouts timed: PERF.md
+// §6.
 
 #include <cuda_runtime.h>
 
@@ -99,7 +114,6 @@ constexpr int kLanes = 4;              // lanes a pair
 constexpr int kGroups = 32 / kLanes;   // pairs a warp works at once
 constexpr int kWindow = 128;           // slots a warp compacts at once
 constexpr int kHarm = 6;
-constexpr int kHeld = 4;  // 32-slot chunks a warp loads at once (remove)
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxDevices = 64;
 constexpr double kTwoPi = 2.0 * 3.1415926535897932384;
@@ -398,20 +412,33 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-// Per device, once: the SM count and the most dynamic shared memory a
-// block may opt in to (the kernel's limit raised to it).  0 until then.
-std::atomic<int> sms_of[kMaxDevices];
-std::atomic<int> smem_most_of[kMaxDevices];
+// Per device and kernel, once: the SM count and the most dynamic shared
+// memory a block may opt in to (the kernel's limit raised to it).  0
+// until then.
+template <auto kKernel>
+struct Prepared {
+  static std::atomic<int> sms[kMaxDevices];
+  static std::atomic<int> smem_most[kMaxDevices];
+};
+template <auto kKernel>
+std::atomic<int> Prepared<kKernel>::sms[kMaxDevices];
+template <auto kKernel>
+std::atomic<int> Prepared<kKernel>::smem_most[kMaxDevices];
 
-cudaError_t prepare(int dev, int* sms, int* smem_most) {
+template <auto kKernel>
+cudaError_t prepare(int* sms, int* smem_most) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  *sms = sms_of[dev].load(std::memory_order_relaxed);
-  *smem_most = smem_most_of[dev].load(std::memory_order_relaxed);
+  *sms = Prepared<kKernel>::sms[dev].load(std::memory_order_relaxed);
+  *smem_most =
+      Prepared<kKernel>::smem_most[dev].load(std::memory_order_relaxed);
   if (*sms > 0) return cudaSuccess;
-  cudaError_t err = cudaDeviceGetAttribute(
-      smem_most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  err = cudaDeviceGetAttribute(smem_most,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(refine_kernel,
+    err = cudaFuncSetAttribute(kKernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                *smem_most);
   }
@@ -419,162 +446,378 @@ cudaError_t prepare(int dev, int* sms, int* smem_most) {
     err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
-    smem_most_of[dev].store(*smem_most, std::memory_order_relaxed);
-    sms_of[dev].store(*sms, std::memory_order_relaxed);
+    Prepared<kKernel>::smem_most[dev].store(*smem_most,
+                                            std::memory_order_relaxed);
+    Prepared<kKernel>::sms[dev].store(*sms, std::memory_order_relaxed);
   }
   return err;
 }
 
 // ------------------------------------------- RemoveUnreliableCandidates
 
-__device__ __forceinline__ float magnitude(float x) { return fabsf(x); }
+constexpr int kRemoveThreads = 256;
+constexpr int kRemoveWarps = kRemoveThreads / 32;
+constexpr int kTileMost = 32;               // frames a tile, at most
+constexpr long long kTileBytes = 48 * 1024;  // a tile's shared memory, aim
+constexpr int kWalk = 4;  // list entries a lane tests at once (load_walk)
 
+__device__ __forceinline__ float magnitude(float x) { return fabsf(x); }
 __device__ __forceinline__ double magnitude(double x) { return fabs(x); }
 
+// x moved by k units in the last place (x finite and >= 0, the result
+// too).
+__device__ __forceinline__ float ulp_step(float x, int k) {
+  return __int_as_float(__float_as_int(x) + k);
+}
+__device__ __forceinline__ double ulp_step(double x, int k) {
+  return __longlong_as_double(__double_as_longlong(x) + k);
+}
+__device__ __forceinline__ float infinity(float) {
+  return __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ double infinity(double) {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// The threshold t(a): for every d, !(d > t(a)) == !(d / a > 0.05), with
+// the quotient and 0.05 in T (ops/refine.py: remove_threshold is the same
+// steps in torch).  For a finite a > 0 correctly rounded division is
+// monotone in d, so the d with fl(d / a) <= 0.05 are those up to a
+// largest t(a).  fl(0.05 a) is within half a unit in the last place of
+// 0.05 a, and t(a) within 0.63 of a unit above it (the quotient's
+// rounding boundary sits half a unit of 0.05 = 1.6 2^-5 above it), so
+// t(a) is fl(0.05 a) or a unit to either side: one step, checked by the
+// division, finds it (for every positive float32 on the card:
+// tests/test_torch_cuda.py).  Otherwise (a < 0, +inf or NaN) no quotient
+// is above 0.05 and t = +inf.
 template <typename T>
-__global__ void remove_kernel(const T* __restrict__ cands,
-                              const T* __restrict__ scores,
-                              T* __restrict__ out_c, T* __restrict__ out_s,
-                              int B, int F, int M) {
-  extern __shared__ unsigned char remove_smem[];
+__device__ __forceinline__ T remove_threshold(T a) {
   const T limit = static_cast<T>(0.05);
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  // The warp's list of its frame's neighbours' nonzero values.
-  T* list = reinterpret_cast<T*>(remove_smem) + 2LL * M * warp;
-  const long long items = static_cast<long long>(B) * F;
-  for (long long item = static_cast<long long>(blockIdx.x) * warps + warp;
-       item < items; item += static_cast<long long>(gridDim.x) * warps) {
-    const int f = static_cast<int>(item % F);
-    const bool interior = f > 0 && f < F - 1;
-    const T* row = cands + item * M;
-    const T* srow = scores + item * M;
-    // 128 slots of frame f at a time, their loads all in flight; the
-    // list is built, once, when the first of them holds a slot to test
-    // (an unvoiced frame only copies its slots).
-    int n = 0;
-    bool zero_seen = false, listed = false;
-    for (int s0 = 0; s0 < M; s0 += 32 * kHeld) {
-      T a[kHeld], sc[kHeld];
-      bool any = false;
+  const T inf = infinity(a);
+  if (!(a > T(0) && a < inf)) return inf;
+  const T t = limit * a;
+  if (t / a > limit) return ulp_step(t, -1);
+  const T up = ulp_step(t, 1);
+  return up / a > limit ? t : up;
+}
+
+// kWalk list entries from 16-byte aligned shared memory.
+__device__ __forceinline__ void load_walk(const float* p, float* b) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  b[0] = v.x;
+  b[1] = v.y;
+  b[2] = v.z;
+  b[3] = v.w;
+}
+__device__ __forceinline__ void load_walk(const double* p, double* b) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  const double2 w = *reinterpret_cast<const double2*>(p + 2);
+  b[0] = v.x;
+  b[1] = v.y;
+  b[2] = w.x;
+  b[3] = w.y;
+}
+
+// Whether some entry b of frame f - 1's list p[0, np) or of frame f + 1's
+// q[0, nq) is close to a: !(|a - b| > t), so a NaN a or b (and inf - inf)
+// counts as close.  Both lists are walked together, kWalk entries of each
+// a step in one or two 16-byte loads (a broadcast across the warp): each
+// is 16-byte aligned and padded with +inf to a multiple of kWalk, so no
+// entry is tested against its list's end (np and nq are the warp's).  A
+// pad is close only where t = +inf, and then so is every entry.
+template <typename T>
+__device__ __forceinline__ bool any_close(const T* p, int np, const T* q,
+                                          int nq, T a, T t) {
+  const int n = np > nq ? np : nq;
+  for (int j = 0; j < n; j += kWalk) {
+    T b[2 * kWalk];
+    if (j < np) {
+      load_walk(p + j, b);
+    } else {
 #pragma unroll
-      for (int k = 0; k < kHeld; ++k) {
-        const int s = s0 + 32 * k + lane;
-        a[k] = s < M ? row[s] : T(0);
-        sc[k] = s < M ? srow[s] : T(0);
-        any = any || a[k] != T(0);
-      }
-      const bool test = interior && __any_sync(kFullMask, any);
-      if (test && !listed) {
-        // Frames f - 1 and f + 1, compacted: their nonzero values in
-        // order, and whether a zero was among them.
-        listed = true;
-        __syncwarp();  // the previous frame's list is read
-        for (int b0 = 0; b0 < 2 * M; b0 += 32 * kHeld) {
-          T b[kHeld];
-#pragma unroll
-          for (int k = 0; k < kHeld; ++k) {
-            const int i = b0 + 32 * k + lane;
-            b[k] = i < 2 * M ? (i < M ? row[i - M] : row[i]) : T(0);
-          }
-#pragma unroll
-          for (int k = 0; k < kHeld; ++k) {
-            const bool in = b0 + 32 * k + lane < 2 * M;
-            const unsigned nz = __ballot_sync(kFullMask, in && b[k] != T(0));
-            zero_seen |= __ballot_sync(kFullMask, in && b[k] == T(0)) != 0u;
-            if (in && b[k] != T(0)) list[n + __popc(nz & below)] = b[k];
-            n += __popc(nz);
-          }
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int k = 0; k < kHeld; ++k) {
-        const int s = s0 + 32 * k + lane;
-        // Each nonzero slot of the chunk in turn, the lanes over the
-        // list: the slot is kept once any |a - b| / a is not above the
-        // limit (a NaN quotient is not), and zeroed when none is.
-        bool kill = false;
-        unsigned left =
-            __ballot_sync(kFullMask, test && s < M && a[k] != T(0));
-        while (left) {
-          const int i = __ffs(left) - 1;
-          left &= left - 1;
-          const T ai = __shfl_sync(kFullMask, a[k], i);
-          bool kept = false;
-          for (int c = 0; c < n && !kept; c += 32) {
-            const bool close =
-                c + lane < n && !(magnitude(ai - list[c + lane]) / ai > limit);
-            kept = __any_sync(kFullMask, close);
-          }
-          // Every zero neighbour gives |a - 0| / a = |a| / a.
-          if (!kept && zero_seen) kept = !(magnitude(ai) / ai > limit);
-          if (lane == i) kill = !kept;
-        }
-        if (s < M) {
-          out_c[item * M + s] = kill ? T(0) : a[k];
-          out_s[item * M + s] = kill ? T(0) : sc[k];
-        }
-      }
+      for (int k = 0; k < kWalk; ++k) b[k] = infinity(a);
     }
+    if (j < nq) {
+      load_walk(q + j, b + kWalk);
+    } else {
+#pragma unroll
+      for (int k = kWalk; k < 2 * kWalk; ++k) b[k] = infinity(a);
+    }
+    bool close = false;
+#pragma unroll
+    for (int k = 0; k < 2 * kWalk; ++k) close |= !(magnitude(a - b[k]) > t);
+    if (close) return true;
+  }
+  return false;
+}
+
+// Copies of 16 bytes, or of one element, from device to shared memory.
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(sizeof(T)) : "memory");
+}
+
+// Elements of ``p`` past its last 16-byte boundary.
+template <typename T>
+__device__ __forceinline__ int misalign(const T* p) {
+  return static_cast<int>(reinterpret_cast<size_t>(p) / sizeof(T) %
+                          (16 / sizeof(T)));
+}
+
+// The ends of the 16-byte chunks of [0, n) past ``p`` (its elements
+// [v0, v1)); none where ``wide`` is false.
+template <typename T>
+__device__ __forceinline__ void chunks(const T* p, int n, bool wide, int* v0,
+                                       int* v1) {
+  constexpr int kVec = 16 / sizeof(T);
+  *v0 = wide ? min((kVec - misalign(p)) % kVec, n) : n;
+  *v1 = *v0 + (n - *v0) / kVec * kVec;
+}
+
+// dst[0, n) = src[0, n), dst at src's offset from a 16-byte boundary:
+// where ``wide``, 16-byte copies but at the ends; one element there.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int n,
+                                      bool wide) {
+  constexpr int kVec = 16 / sizeof(T);
+  int v0, v1;
+  chunks(src, n, wide, &v0, &v1);
+  for (int i = threadIdx.x; i < v0; i += kRemoveThreads) {
+    copy_async(dst + i, src + i);
+  }
+  for (int i = v0 + kVec * threadIdx.x; i < v1; i += kVec * kRemoveThreads) {
+    copy_async16(dst + i, src + i);
+  }
+  for (int i = v1 + threadIdx.x; i < n; i += kRemoveThreads) {
+    copy_async(dst + i, src + i);
   }
 }
 
-// Per device and type, once: the SM count and the most dynamic shared
-// memory a block may opt in to (the kernel's limit raised to it).
-template <typename T>
-struct RemovePrepared {
-  static std::atomic<int> sms[kMaxDevices];
-  static std::atomic<int> smem_most[kMaxDevices];
+// A block's shared memory for tiles of ``tile`` frames of M slots of
+// ``elem`` bytes, G = tile + 2 frames with the two halo frames (byte
+// offsets; every part aligned to its type; the two staged buffers start
+// on 16-byte boundaries and hold 16 bytes more than their span, which
+// starts at its own offset from a boundary).
+struct RemoveLayout {
+  long long raw;     // T[G M]: frames lo .. hi - 1 as read
+  long long scores;  // T[tile M]: the tile's scores
+  long long vals;    // T[G Mp]: each frame's nonzero values in slot order,
+                     // padded with +inf to Mp = M rounded up to kWalk
+  long long counts;  // int[G]: how many
+  long long kills;   // unsigned[tile M / 32 + 2]: a bit an element zeroed
+  long long slots;   // unsigned short[G M]: the slots of vals
+  long long bytes;
 };
+
+__host__ __device__ inline RemoveLayout remove_layout(int tile, int M,
+                                                     int elem) {
+  const long long G = tile + 2;
+  RemoveLayout l;
+  l.raw = 0;
+  l.scores = (l.raw + G * M * elem + 16 + 15) / 16 * 16;
+  l.vals = (l.scores + static_cast<long long>(tile) * M * elem + 16 + 15) /
+           16 * 16;
+  l.counts = l.vals + G * ((M + kWalk - 1) / kWalk * kWalk) * elem;
+  l.kills = l.counts + 4 * G;
+  l.slots = l.kills + 4 * (static_cast<long long>(tile) * M / 32 + 2);
+  l.bytes = (l.slots + 2 * G * M + 15) / 16 * 16;
+  return l;
+}
+
+// Frames a tile: kTileMost, halved while the block passes kTileBytes
+// (down to 1), then while the call has fewer tiles than ``sms`` (a short
+// call wants blocks more than frames a block); 0 (the launch is refused)
+// where three frames pass ``smem_most``.
+int remove_tile(int B, int F, int M, int elem, int sms, int smem_most) {
+  int tile = kTileMost;
+  while (tile > 1 && remove_layout(tile, M, elem).bytes > kTileBytes) {
+    tile /= 2;
+  }
+  if (remove_layout(tile, M, elem).bytes > smem_most) return 0;
+  while (tile > 1 &&
+         static_cast<long long>(B) * ((F + tile - 1) / tile) < sms) {
+    tile /= 2;
+  }
+  return tile;
+}
+
 template <typename T>
-std::atomic<int> RemovePrepared<T>::sms[kMaxDevices];
-template <typename T>
-std::atomic<int> RemovePrepared<T>::smem_most[kMaxDevices];
+__global__ void __launch_bounds__(kRemoveThreads)
+    remove_kernel(const T* __restrict__ cands, const T* __restrict__ scores,
+                  T* __restrict__ out_c, T* __restrict__ out_s, int B, int F,
+                  int M, int tile, bool wide) {
+  constexpr int kVec = 16 / sizeof(T);
+  union Chunk {
+    uint4 u;
+    T x[kVec];
+  };
+  extern __shared__ __align__(16) unsigned char remove_smem[];
+  const RemoveLayout lay = remove_layout(tile, M, sizeof(T));
+  T* vals = reinterpret_cast<T*>(remove_smem + lay.vals);
+  int* counts = reinterpret_cast<int*>(remove_smem + lay.counts);
+  unsigned* kills = reinterpret_cast<unsigned*>(remove_smem + lay.kills);
+  unsigned short* slots =
+      reinterpret_cast<unsigned short*>(remove_smem + lay.slots);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int Mp = (M + kWalk - 1) / kWalk * kWalk;  // a list's stride
+  const int per_row = (F + tile - 1) / tile;
+  const long long tiles = static_cast<long long>(B) * per_row;
+  for (long long item = blockIdx.x; item < tiles; item += gridDim.x) {
+    const int b = static_cast<int>(item / per_row);
+    const int f0 = static_cast<int>(item - static_cast<long long>(b) *
+                                               per_row) * tile;
+    const int f1 = min(f0 + tile, F);  // the tile: frames f0 .. f1 - 1
+    const int lo = max(f0 - 1, 0), hi = min(f1 + 1, F);  // staged
+    const long long row = static_cast<long long>(b) * F;
+    // Elements [e_lo, e_hi) of cands (frames lo .. hi - 1, one contiguous
+    // span) and [o_lo, o_hi) of scores (the tile's), every copy in flight
+    // at once; each buffer starts at its span's offset from a 16-byte
+    // boundary, so that the 16-byte chunks of device memory land on
+    // 16-byte chunks of shared memory.  The tile's kill bits cleared.
+    const long long e_lo = (row + lo) * M, e_hi = (row + hi) * M;
+    const long long o_lo = (row + f0) * M, o_hi = (row + f1) * M;
+    T* raw = reinterpret_cast<T*>(remove_smem + lay.raw) +
+             misalign(cands + e_lo);
+    T* sc = reinterpret_cast<T*>(remove_smem + lay.scores) +
+            misalign(scores + o_lo);
+    stage(raw, cands + e_lo, static_cast<int>(e_hi - e_lo), wide);
+    stage(sc, scores + o_lo, static_cast<int>(o_hi - o_lo), wide);
+    const int n_out = static_cast<int>(o_hi - o_lo);
+    for (int i = threadIdx.x; i < n_out / 32 + 2; i += kRemoveThreads) {
+      kills[i] = 0u;
+    }
+    asm volatile("cp.async.commit_group;\n"
+                 "cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    // Each staged frame compacted once, a warp a frame: its nonzero
+    // values (NaN too) and their slots in slot order, and their count
+    // (a frame has a zero slot where it is below M); the list padded.
+    for (int g = warp; g < hi - lo; g += kRemoveWarps) {
+      const T* fr = raw + static_cast<long long>(g) * M;
+      T* v = vals + static_cast<long long>(g) * Mp;
+      unsigned short* sl = slots + static_cast<long long>(g) * M;
+      int n = 0;
+      for (int base = 0; base < M; base += 32) {
+        const int s = base + lane;
+        const T x = s < M ? fr[s] : T(0);
+        const bool nz = x != T(0);
+        const unsigned ballot = __ballot_sync(kFullMask, nz);
+        if (nz) {
+          const int at = n + __popc(ballot & below);
+          v[at] = x;
+          sl[at] = static_cast<unsigned short>(s);
+        }
+        n += __popc(ballot);
+      }
+      if (n + lane < (n + kWalk - 1) / kWalk * kWalk) {
+        v[n + lane] = infinity(T(0));
+      }
+      if (lane == 0) counts[g] = n;
+    }
+    __syncthreads();
+    // The tile's interior frames, a warp a frame, a lane a candidate:
+    // each walks the lists of frames f - 1 and f + 1 to its first close
+    // entry; a zero neighbour gives |a - 0| = |a|.  A candidate with none
+    // sets its element's kill bit.
+    for (int f = f0 + warp; f < f1; f += kRemoveWarps) {
+      if (f == 0 || f == F - 1) continue;
+      const int g = f - lo;
+      const long long at = static_cast<long long>(g) * Mp;
+      const int n = counts[g], n_prev = counts[g - 1], n_next = counts[g + 1];
+      const bool zero_near = n_prev < M || n_next < M;
+      for (int i = lane; i < n; i += 32) {
+        const T a = vals[at + i];
+        const T t = remove_threshold(a);
+        const bool kept =
+            any_close(vals + at - Mp, n_prev, vals + at + Mp, n_next, a, t) ||
+            (zero_near && !(magnitude(a) > t));
+        if (!kept) {
+          const int e = (f - f0) * M + slots[g * M + i];
+          atomicOr(kills + (e >> 5), 1u << (e & 31));
+        }
+      }
+    }
+    __syncthreads();
+    // The tile's outputs, elements [o_lo, o_hi): 16 bytes a thread where
+    // ``wide`` (every pointer 16-byte aligned, so the chunks of the four
+    // tensors and of the two buffers line up), one element at the ends.
+    const T* src = raw + (o_lo - e_lo);
+    T* oc = out_c + o_lo;
+    T* os = out_s + o_lo;
+    int v0, v1;
+    chunks(oc, n_out, wide, &v0, &v1);
+    for (int i = v0 + kVec * threadIdx.x; i < v1; i += kVec * kRemoveThreads) {
+      const unsigned bits =
+          __funnelshift_r(kills[i >> 5], kills[(i >> 5) + 1], i & 31);
+      Chunk c, s;
+      c.u = *reinterpret_cast<const uint4*>(src + i);
+      s.u = *reinterpret_cast<const uint4*>(sc + i);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const bool kill = (bits >> k) & 1u;
+        c.x[k] = kill ? T(0) : c.x[k];
+        s.x[k] = kill ? T(0) : s.x[k];
+      }
+      *reinterpret_cast<uint4*>(oc + i) = c.u;
+      *reinterpret_cast<uint4*>(os + i) = s.u;
+    }
+    for (int i = threadIdx.x; i < n_out; i += kRemoveThreads) {
+      const int at = i < v0 ? i : v1 + (i - v0);  // the ends
+      if (at >= n_out) break;
+      const bool kill = (kills[at >> 5] >> (at & 31)) & 1u;
+      oc[at] = kill ? T(0) : src[at];
+      os[at] = kill ? T(0) : sc[at];
+    }
+    __syncthreads();  // the shared memory is free for the next tile
+  }
+}
 
 template <typename T>
 cudaError_t launch_remove(const void* cands, const void* scores, void* out_c,
                           void* out_s, int B, int F, int M,
                           cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (M > 65535) return cudaErrorInvalidValue;  // slots are 16-bit
+  int sms = 0, smem_most = 0;
+  cudaError_t err = prepare<&remove_kernel<T>>(&sms, &smem_most);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int sms = RemovePrepared<T>::sms[dev].load(std::memory_order_relaxed);
-  int smem_most =
-      RemovePrepared<T>::smem_most[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&smem_most,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(remove_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_most);
-    }
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return err;
-    RemovePrepared<T>::smem_most[dev].store(smem_most,
-                                            std::memory_order_relaxed);
-    RemovePrepared<T>::sms[dev].store(sms, std::memory_order_relaxed);
-  }
-  // 8 warps a block, fewer where their lists (2 M values each) would
-  // pass the shared memory a block may hold.
-  const long long per_warp = 2LL * M * static_cast<long long>(sizeof(T));
-  long long warps = smem_most / per_warp;
-  if (warps < 1) return cudaErrorInvalidValue;
-  if (warps > kWarps) warps = kWarps;
-  const long long items = static_cast<long long>(B) * F;
-  long long blocks = (items + warps - 1) / warps;
-  const long long most = 8LL * sms;
-  if (blocks > most) blocks = most;
-  remove_kernel<T><<<static_cast<int>(blocks), static_cast<int>(32 * warps),
-                     static_cast<size_t>(per_warp * warps), stream>>>(
+  const int tile = remove_tile(B, F, M, sizeof(T), sms, smem_most);
+  if (tile < 1) return cudaErrorInvalidValue;
+  // 16-byte copies where every tensor starts on a 16-byte boundary.
+  const bool wide =
+      (reinterpret_cast<size_t>(cands) | reinterpret_cast<size_t>(scores) |
+       reinterpret_cast<size_t>(out_c) | reinterpret_cast<size_t>(out_s)) %
+          16 == 0;
+  const long long smem = remove_layout(tile, M, sizeof(T)).bytes;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, remove_kernel<T>, kRemoveThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(B) * ((F + tile - 1) / tile);
+  long long blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > tiles) blocks = tiles;
+  remove_kernel<T><<<static_cast<int>(blocks), kRemoveThreads,
+                     static_cast<size_t>(smem), stream>>>(
       static_cast<const T*>(cands), static_cast<const T*>(scores),
-      static_cast<T*>(out_c), static_cast<T*>(out_s), B, F, M);
+      static_cast<T*>(out_c), static_cast<T*>(out_s), B, F, M, tile, wide);
   return cudaGetLastError();
+}
+
+template <typename T>
+__global__ void threshold_kernel(const T* __restrict__ a, T* __restrict__ t,
+                                 long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    t[i] = remove_threshold(a[i]);
+  }
 }
 
 }  // namespace
@@ -596,9 +839,8 @@ extern "C" int harvest_refine(const void* y, const void* positions,
   if (Ly <= 0 || hw_max < 1 || log2_max < 2 || log2_max > 20) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, sms = 0, smem_most = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = prepare(dev, &sms, &smem_most);
+  int sms = 0, smem_most = 0;
+  cudaError_t err = prepare<&refine_kernel>(&sms, &smem_most);
   if (err != cudaSuccess) return static_cast<int>(err);
   // The staged table, then each warp's samples and slot list.
   const long long smem =
@@ -625,7 +867,8 @@ extern "C" int harvest_refine(const void* y, const void* positions,
 // cands and scores (B, F, M), out_c and out_s (B, F, M) new tensors, all
 // contiguous, of one type: float32 (elem_bytes 4) or float64 (8).
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for
-// another element size).
+// another element size, or where three frames pass the shared memory a
+// block may hold).
 extern "C" int harvest_remove_unreliable(const void* cands,
                                          const void* scores, void* out_c,
                                          void* out_s, int B, int F, int M,
@@ -641,4 +884,24 @@ extern "C" int harvest_remove_unreliable(const void* cands,
         launch_remove<double>(cands, scores, out_c, out_s, B, F, M, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// t (n,) = remove_threshold(a (n,)), the reliability pass's threshold
+// (float32, elem_bytes 4, or float64, 8), for the tests.  Returns the
+// cudaError_t of the launch.
+extern "C" int harvest_remove_threshold(const void* a, void* t, int n,
+                                        int elem_bytes, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  if (elem_bytes == 4) {
+    threshold_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(a), static_cast<float*>(t), n);
+  } else if (elem_bytes == 8) {
+    threshold_kernel<double><<<blocks, 256, 0, s>>>(
+        static_cast<const double*>(a), static_cast<double*>(t), n);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

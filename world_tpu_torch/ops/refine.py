@@ -420,3 +420,47 @@ def remove_unreliable(cands, scores):
 
 
 remove_unreliable.launches = 0   # kernel launches (CUDA path only)
+
+
+def remove_threshold_plain(a):
+    """The plain version of remove_threshold, in torch ops."""
+    limit = torch.tensor(0.05, dtype=a.dtype, device=a.device)
+    inf = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    t = limit * a
+    over = t / a > limit
+    t = torch.where(over, torch.nextafter(t, torch.zeros_like(t)), t)
+    up = torch.nextafter(t, inf)
+    t = torch.where(~over & ~(up / a > limit), up, t)
+    return torch.where((a > 0) & (a < inf), t, inf)
+
+
+def remove_threshold(a):
+    """The reliability pass's threshold t(a) (csrc/refine.cu:
+    remove_threshold) of each element of ``a`` (float32 or float64, 1-D),
+    for the tests: !(d > t(a)) exactly when !(d / a > 0.05), the quotient
+    and 0.05 in a's type.  For a finite a > 0, fl(0.05 a) moved by at most
+    one unit in the last place, checked by the division; +inf for a < 0,
+    +inf or NaN.  On a CUDA tensor the kernel's own device function, on a
+    CPU one its plain version."""
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"a must be float32 or float64, got {a.dtype}")
+    if a.dim() != 1 or a.numel() >= 2 ** 31:
+        raise ValueError(f"a must be 1-D, below 2^31 elements, got "
+                         f"{tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return remove_threshold_plain(a)
+    if a.device.type != "cuda" or not a.is_contiguous():
+        raise ValueError("a must be a contiguous CUDA or CPU tensor")
+    t = torch.empty_like(a)
+    if a.numel() == 0:
+        return t
+    entry = _cuda.entry("refine", "harvest_remove_threshold",
+                        (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2
+                        + (ctypes.c_void_p,))
+    _cuda.launch("harvest_remove_threshold", entry, a.device, a.data_ptr(),
+                 t.data_ptr(), a.numel(), a.element_size())
+    remove_threshold.launches += 1
+    return t
+
+
+remove_threshold.launches = 0    # kernel launches (CUDA path only)

@@ -3,7 +3,8 @@ harvest_remove_unreliable) on the card against their plain versions and
 their bounds.
 
     python world_tpu_torch/tools/refine_bench.py [--root DIR]
-        [--inputs FILE] [--sass] [--longform] [--out FILE]
+        [--inputs FILE] [--remove-only] [--sass] [--longform]
+        [--out FILE]
 
 records the refinement wrapper's arguments from 16-row float32 Harvest
 batch steps of the golden utterances (rows at gains 0.5-1.5) at 22.05 and
@@ -11,8 +12,10 @@ batch steps of the golden utterances (rows at gains 0.5-1.5) at 22.05 and
 ``analyze_long`` (contour_bench.path_calls), and the kernel's outputs
 there (the reliability pass's inputs), then ``measure``s the refinement
 and ``measure_remove``s the reliability pass on them, one JSON line per
-case.  ``--root`` imports world_tpu_torch from another checkout (for
-example the parent commit, unpacked with ``git archive``; the script
+case (the reliability pass also on the first row in float64, the shape
+of the float64 exact path's; ``--remove-only`` times it alone).
+``--root`` imports world_tpu_torch from another checkout (for example
+the parent commit, unpacked with ``git archive``; the script
 form only), so that its kernels, or a checkout's eager pass where it has
 no remove kernel, are timed by the same code; ``--inputs`` saves the
 recorded tensors to FILE, or loads them where FILE exists, so that every
@@ -413,6 +416,8 @@ def main(argv=None):
                     help="also count the kernels' SASS instructions")
     ap.add_argument("--longform", action="store_true",
                     help="also time analyze_long on 300 s of 48 kHz")
+    ap.add_argument("--remove-only", action="store_true",
+                    help="time only the reliability pass")
     ap.add_argument("--out", default=None, help="also append lines here")
     args = ap.parse_args(argv)
     import torch
@@ -439,9 +444,15 @@ def main(argv=None):
     flush = bench.l2_flush(torch)
     lines = []
     for case, rec in cases.items():
-        lines.append({"root": root, "card": card, "case": case,
-                      **measure(torch, *rec["harvest_refine"], flush),
-                      "remove": measure_remove(torch, rec["remove"], flush)})
+        line = {"root": root, "card": card, "case": case}
+        if not args.remove_only:
+            line.update(measure(torch, *rec["harvest_refine"], flush))
+        # The float32 call, and its first row in float64: the float64 exact
+        # path's (1, F, M) shape.
+        line["remove"] = measure_remove(torch, rec["remove"], flush)
+        line["remove_row0_f64"] = measure_remove(
+            torch, [t[:1].double() for t in rec["remove"]], flush)
+        lines.append(line)
     if args.sass:
         lines.append({"root": root, "card": card, "sass": sass_counts(root)})
     if args.longform:
