@@ -2,8 +2,8 @@
 corpus, distributed, profiling) on the CPU: every case of
 tests/test_corpus.py, the same corpus through world_tpu's
 BatchedCorpusRunner and the port's, fast-mode output independent of the
-batch size, at most two batches in flight, and a two-process gloo
-allreduce.
+batch size, at most two batches in flight, a two-process gloo
+allreduce, and a profiled step's Chrome trace.
 
 Tolerances: stored coded arrays equal the codec of a full step's outputs
 within rtol/atol 2e-4 (tests/test_corpus.py's gate); against world_tpu's
@@ -438,6 +438,12 @@ def test_at_most_two_batches_in_flight(tmp_path):
 
 
 def test_stage_timer_and_trace(tmp_path):
+    """StageTimer's JSON line; profiling.trace() profiles a step with the
+    program's tracing on and exports a Chrome trace that holds its spans
+    and stages; tracing is off again after it."""
+    from world_tpu_torch import device
+    from world_tpu_torch.parallel.pipeline import make_batch_step
+
     lines = []
     timer = profiling.StageTimer(2.0, log=lines.append, device="cpu")
     with timer.stage("fft", frames=400):
@@ -445,8 +451,14 @@ def test_stage_timer_and_trace(tmp_path):
     rec = json.loads(lines[0])
     assert rec["stage"] == "fft" and rec["ms"] >= 0
     assert timer.records["fft"] == rec and "frames_per_s" in rec
+    x = 0.4 * np.sin(2 * np.pi * 150.0 * np.arange(4000) / 8000.0)
+    step = make_batch_step(8000, 4000, f0_method="dio",
+                           with_synthesis=False, device="cpu")
     with profiling.trace(str(tmp_path / "tr")) as prof:
-        torch.ones(64).sum()
-    assert prof is not None
+        assert device.tracing()
+        step(x[None].astype(np.float32))
+    assert prof is not None and not device.tracing()
     trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
-    assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"span:step", "stage:dio", "stage:d4c",
+            "span:sync.d4c.n_pass"} <= names

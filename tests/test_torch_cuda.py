@@ -11,7 +11,10 @@ division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
 and span against rows, and chunked Dio analyze_long against
-whole-signal analysis.  Each skips without a card.
+whole-signal analysis, the host syncs of a warmed Harvest and Dio step
+against what set_sync_debug_mode("warn") reports, site by site, and a
+traced step's launches inside its ``span:step``.  Each skips without a
+card.
 
 This file imports neither jax nor the JAX package and reads the goldens
 itself, so it also runs where JAX is not installed:
@@ -1643,3 +1646,118 @@ def test_stonemask_rejects_bad_inputs(cuda):
         _cuda.launch("stonemask_refine", entry, x.device, x.data_ptr(),
                      pos.data_ptr(), f0.data_ptr(), f0.data_ptr(), 2,
                      x.shape[1], f0.shape[1], (1 << 24) + 1, 22050.0)
+
+
+def _sync_blocks():
+    """{source path: [(first line, last line, site)]} of every
+    ``with sync("<site>"...):`` block of the package."""
+    import ast
+    from pathlib import Path
+
+    out = {}
+    for path in Path(W.__file__).resolve().parent.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.With):
+                continue
+            for item in node.items:
+                call = item.context_expr
+                if isinstance(call, ast.Call) and getattr(
+                        call.func, "id", None) == "sync":
+                    out.setdefault(str(path), []).append(
+                        (node.lineno, node.end_lineno, call.args[0].value))
+    return out
+
+
+def _syncs_by_site(fn):
+    """Run ``fn`` under set_sync_debug_mode("warn"): ({site: syncs the
+    mode reports inside that site's block}, {site: device.sync.counts'
+    rise}).  A sync outside every block is put under None."""
+    import traceback
+    import warnings
+
+    from world_tpu_torch import device
+
+    blocks = _sync_blocks()
+    seen = []
+
+    def record(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            seen.append(traceback.extract_stack()[:-1])
+
+    before = dict(device.sync.counts)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reported = {}
+    for stack in seen:
+        site = next((s for f in reversed(stack)
+                     for first, last, s in blocks.get(
+                         os.path.realpath(f.filename), ())
+                     if first <= f.lineno <= last), None)
+        reported[site] = reported.get(site, 0) + 1
+    counted = {k: v - before.get(k, 0) for k, v in device.sync.counts.items()
+               if v != before.get(k, 0)}
+    return reported, counted
+
+
+@pytest.mark.parametrize("path", ["harvest", "dio"])
+def test_step_syncs_are_the_counted_sites(cuda, path):
+    """One warmed float32 step, Harvest + Synthesis or Dio + StoneMask +
+    codec: every sync that set_sync_debug_mode("warn") reports lies in a
+    ``device.sync`` block, and each site's count rises by the syncs
+    reported in it."""
+    x = golden("x").astype(np.float32)
+    kw = (dict(f0_method="harvest") if path == "harvest" else
+          dict(f0_method="dio", codec_dims=60, with_synthesis=False))
+    step = pipeline.make_batch_step(22050, len(x), rng_mode="fast",
+                                    device=cuda, **kw)
+    xb = torch.as_tensor(np.stack([x, 0.7 * x]), device=cuda)
+    step(xb)
+    reported, counted = _syncs_by_site(lambda: step(xb))
+    assert None not in reported
+    assert reported == counted and sum(counted.values()) >= 10
+
+
+def test_step_launches_inside_its_span(cuda):
+    """With tracing on, every kernel a profiled step launches has its
+    launch time inside the step's ``span:step`` range: the program's
+    spans and the card's kernels are on one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from world_tpu_torch import device
+
+    x = golden("x").astype(np.float32)
+    step = pipeline.make_batch_step(22050, len(x), rng_mode="fast",
+                                    f0_method="harvest", device=cuda)
+    xb = torch.as_tensor(np.stack([x, 0.7 * x]), device=cuda)
+    step(xb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        device.set_tracing(True)
+        try:
+            step(xb)
+        finally:
+            device.set_tracing(False)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    launch_at, kernels, spans = {}, [], []
+    for ev in events:
+        start = ev.start_ns()
+        if "CUDA" in str(ev.device_type()):
+            if not ev.is_user_annotation() and not ev.name().startswith(
+                    ("Memcpy", "Memset")):
+                kernels.append(ev.correlation_id())
+        elif ev.name() == "span:step":
+            spans.append((start, start + ev.duration_ns()))
+        elif ev.name().startswith("cu"):
+            launch_at[ev.correlation_id()] = start
+    assert len(spans) == 1 and len(kernels) > 100
+    lo, hi = spans[0]
+    assert all(lo <= launch_at[c] <= hi for c in kernels)

@@ -13,7 +13,7 @@ import torch
 
 from .. import config
 from ..config import get_number_of_aperiodicities
-from ..device import as_tensor, div, resolve_device
+from ..device import as_tensor, div, resolve_device, sync
 from ..ops.matlab import interp1, interp1q
 
 
@@ -88,13 +88,16 @@ def code_spectral_envelope_batch(spectrogram, fs, fft_size,
     perm = np.empty(max_dim, np.int64)
     perm[: max_dim // 2] = np.arange(max_dim // 2) * 2
     perm[max_dim // 2:] = max_dim - np.arange(max_dim // 2) * 2 - 1
-    spec = torch.fft.rfft(mel[..., torch.as_tensor(perm, device=dev)])
+    with sync("codec.perm"):
+        perm = torch.as_tensor(perm, device=dev)
+    spec = torch.fft.rfft(mel[..., perm])
     nb = spec.shape[-1]
     k = np.arange(nb)
     w = 2.0 * np.exp(1j * k * config.K_PI / fft_size) / np.sqrt(fft_size)
     w[0] /= np.sqrt(2.0)
-    w_re = torch.as_tensor(w.real, dtype=dtype, device=dev)
-    w_im = torch.as_tensor(w.imag, dtype=dtype, device=dev)
+    with sync("codec.weights", 2):
+        w_re = torch.as_tensor(w.real, dtype=dtype, device=dev)
+        w_im = torch.as_tensor(w.imag, dtype=dtype, device=dev)
     cep = (spec.real * w_re - spec.imag * w_im) / np.sqrt(max_dim)
     if number_of_dimensions > nb:
         cep = torch.nn.functional.pad(cep, (0, number_of_dimensions - nb))

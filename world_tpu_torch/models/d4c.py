@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import as_tensor, div, resolve_device
+from ..device import as_tensor, div, resolve_device, sync
 from ..ops import common
 from ..ops import rng as rng_ops
 from ..ops.matlab import interp1, matlab_round
@@ -183,7 +183,8 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
 
     # D4CGeneralBody only for frames passing the gate
     # (src/d4c.cpp:385-395); the rest keep the default row.
-    n_pass = int(passing.sum())
+    with sync("d4c.n_pass"):
+        n_pass = int(passing.sum())
     if rng_mode == "exact":
         body_counts = torch.where(passing, 3 * body_win,
                                   torch.zeros_like(body_win))
@@ -197,8 +198,10 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
         # Gathered by frame index, not by rank among the batch's passing
         # frames, so a frame's draws do not depend on the other rows.
         frame = torch.arange(n_frames, device=dev).expand(B, n_frames)
-        body_dither = rng_ops.fast_normal_frames(
-            2, n_frames, (3, max_body), dtype, dev, frames)[frame[passing]]
+        draws = rng_ops.fast_normal_frames(2, n_frames, (3, max_body), dtype,
+                                           dev, frames)
+        with sync("d4c.passing"):
+            body_dither = draws[frame[passing]]
     else:
         body_dither = torch.zeros((n_pass, 3, max_body), dtype=dtype,
                                   device=dev)
@@ -209,10 +212,13 @@ def d4c_batch(x, temporal_positions, f0, fs, fft_size,
     # Below 12 kHz there is no coarse band (fs=8000: n_bands 0); passing
     # frames then interpolate between the two edge values alone.
     if n_pass and n_bands:
-        coarse[passing] = _d4c_body(
-            x, fs, fft_d4c, n_bands, window, window_length, f0_cap, b_max,
-            rows[passing], f0_body[passing], temporal_positions[passing],
-            body_dither)
+        with sync("d4c.passing", 3):
+            picked = (rows[passing], f0_body[passing],
+                      temporal_positions[passing])
+        body = _d4c_body(x, fs, fft_d4c, n_bands, window, window_length,
+                         f0_cap, b_max, *picked, body_dither)
+        with sync("d4c.passing"):
+            coarse[passing] = body
 
     # Assemble [-60, coarse..., -eps] and interpolate onto the output axis
     # (src/d4c.cpp:330-338,372-394).

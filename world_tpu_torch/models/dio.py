@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import StageClock, as_tensor, div, resolve_device
+from ..device import StageClock, as_tensor, div, resolve_device, sync
 from ..ops.common import get_suitable_fft_size
 from ..ops.contour import dio_fix_walks
 from ..ops.filterbank import filtered_signal_dio
@@ -53,9 +53,10 @@ def _spectrum_for_estimation(x, y_length, actual_fs, fft_size,
     y = torch.nn.functional.pad(base, (0, y_length - base.shape[1]))
     y = y - y.mean(1, keepdim=True)
     cutoff_in_sample = int(round(actual_fs / config.K_CUT_OFF))
-    lcf = torch.as_tensor(_design_low_cut_filter(cutoff_in_sample * 2 + 1,
-                                                 fft_size),
-                          dtype=x.dtype, device=x.device)
+    with sync("dio.lowcut"):
+        lcf = torch.as_tensor(_design_low_cut_filter(cutoff_in_sample * 2 + 1,
+                                                     fft_size),
+                              dtype=x.dtype, device=x.device)
     return torch.fft.rfft(y, n=fft_size) * torch.fft.rfft(lcf)
 
 
@@ -188,13 +189,16 @@ def dio_batch(x, fs, frame_period=5.0, f0_floor=config.K_FLOOR_F0,
     # Host float64 constants in the reference's order (i * fp) / 1000
     # (src/dio.cpp:610), cast once: computed on the device they can land
     # 1 ulp off and flip .5-rounding (every odd frame at 44.1 kHz).
-    temporal_positions = torch.as_tensor(
-        np.arange(f0_length, dtype=np.float64) * frame_period / 1000.0,
-        dtype=dtype, device=dev)
+    with sync("dio.positions"):
+        temporal_positions = torch.as_tensor(
+            np.arange(f0_length, dtype=np.float64) * frame_period / 1000.0,
+            dtype=dtype, device=dev)
     fs_t = torch.full((), actual_fs, dtype=dtype, device=dev)
+    with sync("dio.boundaries"):
+        boundaries = torch.as_tensor(boundaries_np, dtype=dtype, device=dev)
     cands, scores = _band_candidates(
-        torch.as_tensor(boundaries_np, dtype=dtype, device=dev), y_spectrum,
-        y_length, fs_t, fft_size, temporal_positions, f0_floor, f0_ceil)
+        boundaries, y_spectrum, y_length, fs_t, fft_size,
+        temporal_positions, f0_floor, f0_ceil)
     best = torch.gather(cands, 1, scores.argmin(1, keepdim=True))[:, 0]
 
     voice_range_minimum = int(0.5 + 1000.0 / frame_period / f0_floor) * 2 + 1

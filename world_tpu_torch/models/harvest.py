@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import StageClock, as_tensor, div, resolve_device
+from ..device import StageClock, as_tensor, div, resolve_device, sync
 from ..ops import common
 from ..ops.common import get_suitable_fft_size
 from ..ops.filterbank import filtered_signal_harvest
@@ -274,7 +274,8 @@ def _candidate_stage(x, fs, f0_floor, f0_ceil, channels_in_octave, speed,
     f0_length = config.get_samples_for_harvest(fs, x_length, 1.0)
     positions = div(torch.arange(f0_length, dtype=dtype, device=dev), 1000.0)
     fs_t = torch.full((), actual_fs, dtype=dtype, device=dev)
-    boundaries = torch.as_tensor(boundaries_np, dtype=dtype, device=dev)
+    with sync("harvest.boundaries"):
+        boundaries = torch.as_tensor(boundaries_np, dtype=dtype, device=dev)
     with clock("harvest.filterbank"):
         raw = _raw_candidates(boundaries, y_spectrum, y_length, fs_t,
                               fft_size, positions, f0_floor, f0_ceil)
@@ -316,9 +317,10 @@ def harvest_batch(x, fs, frame_period=5.0, f0_floor=config.K_FLOOR_F0,
     f0_length = config.get_samples_for_harvest(fs, x_length, frame_period)
     # Host float64 positions cast once (src/harvest.cpp:1248): computed
     # on the device they can land 1 ulp off and flip .5-rounding.
-    temporal_positions = torch.as_tensor(
-        np.arange(f0_length, dtype=np.float64) * frame_period / 1000.0,
-        dtype=dtype, device=dev)
+    with sync("harvest.positions"):
+        temporal_positions = torch.as_tensor(
+            np.arange(f0_length, dtype=np.float64) * frame_period / 1000.0,
+            dtype=dtype, device=dev)
     if frame_period == 1.0:
         return temporal_positions, basic_f0[:, :f0_length]
     # matlab_round (half away from zero), not torch.round (half to even):

@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import sync
 from ..ops.contour import harvest_fix_step3
 from ..ops.iir import iir_zero_phase
 from ..ops.matlab import lti_block_filter, lti_block_tables, take_last
@@ -79,7 +80,8 @@ def _section_bounds(values, cap=None):
     if cap is not None:
         k = cap
     else:
-        k = max(int(count.max()), 1) if count.numel() else 1
+        with sync("harvest.sections"):
+            k = max(int(count.max()), 1) if count.numel() else 1
     idx = torch.arange(values.shape[1], device=values.device)
     big = torch.full((), BIG, device=values.device)
     st = torch.sort(torch.where(s_mask, idx, big), 1).values[:, :k]

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import as_tensor, div, resolve_device
+from ..device import as_tensor, div, resolve_device, sync
 from ..ops import fftpack
 from ..ops import rng as rng_ops
 from ..ops.common import minimum_phase_spectrum
@@ -35,8 +35,9 @@ def _dc_remover(fft_size, dtype, device):
     i = np.arange(fft_size // 2)
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * (i + 1.0) / (1.0 + fft_size))
     w = w / (2.0 * w.sum())
-    return torch.as_tensor(np.concatenate([w, w[::-1]]), dtype=dtype,
-                           device=device)
+    with sync("synthesis.dc_remover"):
+        return torch.as_tensor(np.concatenate([w, w[::-1]]), dtype=dtype,
+                               device=device)
 
 
 def _time_base(f0, fs_t, frame_period_s, y_length, lowest_f0):
@@ -146,7 +147,8 @@ def synthesis_batch(f0, spectrogram, aperiodicity, fs, frame_period,
 
     is_pulse, shift_all, vuv_all = _time_base(f0, fs_t, frame_period_s,
                                               y_length, lowest_f0)
-    rows, samples = is_pulse.nonzero(as_tuple=True)   # row-major, ascending
+    with sync("synthesis.pulses"):
+        rows, samples = is_pulse.nonzero(as_tuple=True)  # row-major, ascending
     row_ptr = torch.nn.functional.pad(torch.cumsum(is_pulse.sum(1), 0),
                                       (1, 0))
     # Noise length: up to the row's next pulse, 0 for its last pulse.

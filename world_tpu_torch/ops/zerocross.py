@@ -11,6 +11,8 @@ not the frame-block summaries its TPU path uses.
 
 import torch
 
+from ..device import sync
+
 
 def _crossing_pairs(signal, n_valid, fs):
     """Intervals between successive +to- zero crossings along the last
@@ -57,6 +59,7 @@ def four_zero_crossing_streams(filtered, n_valid, fs):
     intervals and (..., 4) pair counts."""
     d = torch.roll(filtered, -1, -1) - filtered  # last entry junk
     streams = torch.stack([filtered, -filtered, d, -d], -2)
-    valids = torch.tensor([n_valid, n_valid, n_valid - 1, n_valid - 1],
-                          device=filtered.device)
+    with sync("zerocross.valids"):
+        valids = torch.tensor([n_valid, n_valid, n_valid - 1, n_valid - 1],
+                              device=filtered.device)
     return _crossing_pairs(streams, valids.expand(streams.shape[:-1]), fs)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import download, upload
+from ..device import download, span, sync, upload
 from ..models.realtime import StreamingSynthesizer
 from .pipeline import get_batch_step, run_global, step_device
 
@@ -49,8 +49,10 @@ class _Batch:
 
     def result(self):
         if self.event is not None:
-            self.event.synchronize()
-        return [h.numpy() for h in self.host]
+            with sync("longform.wait"):
+                self.event.synchronize()
+        with span("longform.collect"):
+            return [h.numpy() for h in self.host]
 
 
 def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
@@ -67,7 +69,9 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
     converted there to float32 (exact /2**15, the wavread scaling);
     float32 input runs in float32, anything else in float64.  With
     ``mesh``, every rank calls it with the same signal and gets the whole
-    result; the device is the mesh's."""
+    result; the device is the mesh's.  The host's work is the spans
+    ``longform.chunk``, ``longform.collect`` and ``longform.stitch``; the
+    wait for a batch's results is the sync site ``longform.wait``."""
     dev = step_device(mesh, device)
     x = np.asarray(x)
     n = len(x)
@@ -87,11 +91,12 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
     starts_f = np.arange(n_chunks) * core_f - halo_f     # global frame idx
     start_samples = np.round(starts_f * fp_s * fs).astype(np.int64)
 
-    chunks = np.zeros((n_chunks, chunk_len), x.dtype)
-    for c, s0 in enumerate(start_samples):
-        lo, hi = max(0, s0), min(n, s0 + chunk_len)
-        if hi > lo:
-            chunks[c, lo - s0: hi - s0] = x[lo:hi]
+    with span("longform.chunk"):
+        chunks = np.zeros((n_chunks, chunk_len), x.dtype)
+        for c, s0 in enumerate(start_samples):
+            lo, hi = max(0, s0), min(n, s0 + chunk_len)
+            if hi > lo:
+                chunks[c, lo - s0: hi - s0] = x[lo:hi]
 
     int_in = x.dtype == np.int16
     dtype = torch.float32 if (x.dtype == np.float32 or int_in) \
@@ -115,20 +120,22 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
             parts.append(inflight.popleft().result())
         inflight.append(run(chunks[b0: b0 + lanes]))
     parts.extend(b.result() for b in inflight)
-    f0c, spc, apc = (np.concatenate([p[i] for p in parts])
-                     for i in range(3))
+    with span("longform.collect"):
+        f0c, spc, apc = (np.concatenate([p[i] for p in parts])
+                         for i in range(3))
 
     # Stitch: core frames only.
-    f0 = np.zeros(n_frames, f0c.dtype)
-    sp = np.zeros((n_frames, spc.shape[2]), spc.dtype)
-    ap = np.zeros((n_frames, apc.shape[2]), apc.dtype)
-    for c in range(n_chunks):
-        g0 = c * core_f
-        g1 = min(n_frames, g0 + core_f)
-        l0 = g0 - starts_f[c]                    # == halo_f except chunk 0
-        f0[g0:g1] = f0c[c, l0: l0 + g1 - g0]
-        sp[g0:g1] = spc[c, l0: l0 + g1 - g0]
-        ap[g0:g1] = apc[c, l0: l0 + g1 - g0]
+    with span("longform.stitch"):
+        f0 = np.zeros(n_frames, f0c.dtype)
+        sp = np.zeros((n_frames, spc.shape[2]), spc.dtype)
+        ap = np.zeros((n_frames, apc.shape[2]), apc.dtype)
+        for c in range(n_chunks):
+            g0 = c * core_f
+            g1 = min(n_frames, g0 + core_f)
+            l0 = g0 - starts_f[c]                # == halo_f except chunk 0
+            f0[g0:g1] = f0c[c, l0: l0 + g1 - g0]
+            sp[g0:g1] = spc[c, l0: l0 + g1 - g0]
+            ap[g0:g1] = apc[c, l0: l0 + g1 - g0]
 
     tp = np.arange(n_frames) * fp_s
     return tp, f0, sp, ap

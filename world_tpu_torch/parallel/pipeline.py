@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 from .. import config
-from ..device import StageClock, as_tensor, resolve_device
+from ..device import StageClock, as_tensor, resolve_device, span
 from ..models.cheaptrick import cheap_trick_batch
 from ..models.codec import (code_aperiodicity_batch,
                             code_spectral_envelope_batch)
@@ -146,7 +146,7 @@ def make_batch_step(fs, x_length, frame_period=5.0, rng_mode="fast",
     (float32 is the production path).  Given a dict as ``timings``, the
     step synchronizes around each stage and records its wall
     milliseconds under the stage's name (parts of a stage as
-    "<stage>.<part>").
+    "<stage>.<part>").  The call is the span ``step``.
 
     With ``mesh`` (make_mesh), every rank calls the step with the same
     global batch, B a multiple of n_data, and gets its own shard: f0
@@ -221,7 +221,7 @@ def make_batch_step(fs, x_length, frame_period=5.0, rng_mode="fast",
                 whole[..., 1:k + 1].contiguous(),
                 whole[..., k + 1:].contiguous())
 
-    def step(x_batch, timings=None):
+    def run(x_batch, timings):
         x = as_tensor(x_batch, dev)
         if x.dim() != 2 or x.shape[1] != x_length:
             raise ValueError(f"expected (B, {x_length}), got "
@@ -260,6 +260,10 @@ def make_batch_step(fs, x_length, frame_period=5.0, rng_mode="fast",
             f0, sp_out, ap_out = (t[:, :f_real] for t in (f0, sp_out,
                                                           ap_out))
         return f0, sp_out, ap_out, y
+
+    def step(x_batch, timings=None):
+        with span("step"):
+            return run(x_batch, timings)
 
     return step
 

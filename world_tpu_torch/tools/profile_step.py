@@ -25,7 +25,6 @@ only), so its steps are timed by the same code.  Needs a CUDA device.
 
 import argparse
 import collections
-import contextlib
 import json
 import os
 import subprocess
@@ -41,32 +40,30 @@ GOLDENS = {22050: "goldens", 48000: "goldens_fs48"}
 
 
 def stage_ops(step, x):
-    """Top-level torch ops per stage of one ``step(x, timings=...)``: the
-    aten ops that torch.profiler records directly inside a stage of the
-    step's StageClock (not inside another op), counted for that stage and
-    every stage around it.  Host-side tracing only."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """Top-level torch ops per stage of one ``step(x)``: the aten ops that
+    torch.profiler records directly inside a stage of the step's
+    StageClock (not inside another op; a span between them, such as a
+    host sync's, is looked through), counted for that stage and every
+    stage around it.  Host-side tracing only, with the program's tracing
+    on."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from world_tpu_torch.device import StageClock
+    from world_tpu_torch import device
 
-    real = StageClock.__call__
-
-    @contextlib.contextmanager
-    def marked(self, name):
-        with record_function("stage:" + name), real(self, name):
-            yield
-
-    StageClock.__call__ = marked
+    was = device.set_tracing(True)
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            step(x, timings={})
+            step(x)
     finally:
-        StageClock.__call__ = real
+        device.set_tracing(was)
     counts = collections.Counter()
     for e in prof.events():
+        if not e.name.startswith("aten::"):
+            continue
         p = e.cpu_parent
-        if not (e.name.startswith("aten::") and p is not None
-                and p.name.startswith("stage:")):
+        while p is not None and p.name.startswith("span:"):
+            p = p.cpu_parent
+        if p is None or not p.name.startswith("stage:"):
             continue
         while p is not None:
             if p.name.startswith("stage:"):

@@ -2,8 +2,10 @@
 
 The reference's profiling is printf wall-clock timers per stage
 (test/test.cpp:49-59).  Here: torch.profiler traces exported as Chrome
-traces (chrome://tracing, Perfetto), and a stage timer that reports
-frames/s and real-time factor.
+traces (chrome://tracing, Perfetto), holding the program's own spans,
+stages and host syncs (world_tpu_torch/device.py) beside the card's
+kernels and copies, and a stage timer that reports frames/s and
+real-time factor.
 """
 
 import contextlib
@@ -12,18 +14,23 @@ import os
 
 import torch
 
-from ..device import StageClock, resolve_device
+from ..device import StageClock, resolve_device, set_tracing
 
 
 @contextlib.contextmanager
 def trace(log_dir):
     """Profile the enclosed work (the CPU, and the card when there is
-    one) and write ``log_dir``/trace.json.  Yields the profiler."""
+    one), with the program's tracing on, and write
+    ``log_dir``/trace.json.  Yields the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+        was = set_tracing(True)
+        try:
+            yield prof
+        finally:
+            set_tracing(was)
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
