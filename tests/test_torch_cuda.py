@@ -11,9 +11,11 @@ division by fs on the card, float64 Dio, StoneMask and the codec on the
 card against the goldens, the batched steps (Harvest and Dio) through
 the kernel, float64 streaming against the reference's streaming output
 and span against rows, and chunked Dio analyze_long against
-whole-signal analysis, the host syncs of a warmed Harvest and Dio step
-against what set_sync_debug_mode("warn") reports, site by site, and a
-traced step's launches inside its ``span:step``.  Each skips without a
+whole-signal analysis and its results landed in page-locked outputs
+(equal to the plain stitch, no new host block a call), the host syncs
+of a warmed Harvest and Dio step against what
+set_sync_debug_mode("warn") reports, site by site, and a traced step's
+launches inside its ``span:step``.  Each skips without a
 card.
 
 This file imports neither jax nor the JAX package and reads the goldens
@@ -872,6 +874,40 @@ def test_chunked_dio_on_card(cuda):
     assert ((f0 > 0) == (f0_c > 0))[interior].mean() > 0.99
     assert np.percentile(cents(f0_c[both], f0[both]), 95) < 1.0
     assert np.median(np.abs(10 * np.log10(sp_c[both] / sp[both]))) < 0.1
+
+
+def test_analyze_long_lands_in_page_locked_outputs(cuda, monkeypatch):
+    """analyze_long on the card (Dio, 1 s cores in batches of 3, 7 chunks,
+    the last cut): f0, sp and ap are page-locked, every chunk is landed
+    by the copy engine and none on the host, the outputs equal the plain
+    concatenate-and-slice stitch of the same step outputs, and a second
+    call after the first's arrays are dropped allocates no new host
+    block."""
+    from longform_stitch import plain_stitch, record_steps
+
+    from world_tpu_torch.parallel import analyze_long, longform
+
+    fs = 16000
+    x = _long_vowelish(fs, 6.6).astype(np.float32)
+    kw = dict(chunk_seconds=1.0, halo_seconds=0.2)
+    call = dict(f0_method="dio", batch_lanes=3, device=cuda, **kw)
+    seen = record_steps(monkeypatch)
+    before = dict(longform.landed)
+    tp, *got = analyze_long(x, fs, **call)
+    assert len(tp) == 1321
+    assert longform.landed["card"] - before.get("card", 0) == 7
+    assert longform.landed["host"] == before.get("host", 0)
+    assert all(torch.from_numpy(a).is_pinned() for a in got)
+    want = plain_stitch(seen, len(tp), **kw)
+    assert all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(got, want))
+    del tp, got
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is not None:
+        allocs = stats().get("num_host_alloc")
+        again = analyze_long(x, fs, **call)
+        assert stats().get("num_host_alloc") == allocs
+        assert all(torch.from_numpy(a).is_pinned() for a in again[1:])
 
 
 def test_synthesis_f64_on_card_matches_cpu(cuda):

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import world_tpu_torch as W  # noqa: E402
+from longform_stitch import plain_stitch, record_steps  # noqa: E402
 from test_longform import _long_vowelish  # noqa: E402
 from test_torch_dio import f32_jax_gate  # noqa: E402
 from world_tpu.parallel import longform as jax_longform  # noqa: E402
@@ -160,6 +161,32 @@ def test_at_most_two_batches_in_flight(monkeypatch):
     assert outstanding.max() <= longform.IN_FLIGHT and outstanding[-1] == 0
     for a, b in zip(got, one):
         np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind,lanes,codec_dims", [
+    ("float32", 1, None), ("float32", 3, None), ("float32", None, None),
+    ("float64", 3, None), ("int16", 3, 24)])
+def test_results_land_as_the_plain_stitch(monkeypatch, kind, lanes,
+                                          codec_dims):
+    """analyze_long's outputs are np.array_equal to a concatenate-and-slice
+    stitch of the same step outputs, for 661 frames in 100-frame cores
+    (the last chunk cut to 61), and each of the 7 chunks counts as landed
+    on the host."""
+    x, _ = _long_vowelish(FS, 3.3)
+    x = (np.clip(x, -1, 1) * 32768).astype(np.int16) if kind == "int16" \
+        else x.astype(kind)
+    kw = dict(chunk_seconds=0.5, halo_seconds=0.1)
+    seen = record_steps(monkeypatch)
+    before = longform.landed["host"]
+    tp, *got = analyze_long(x, FS, f0_method="dio", rng_mode="none",
+                            codec_dims=codec_dims, batch_lanes=lanes,
+                            device="cpu", **kw)
+    assert len(tp) == 661
+    assert longform.landed["host"] - before == 7
+    assert len(seen) == (1 if lanes is None else -(-7 // lanes))
+    want = plain_stitch(seen, len(tp), **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_unported_mesh_and_device_selection(monkeypatch):

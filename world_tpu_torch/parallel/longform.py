@@ -7,19 +7,26 @@ chunks padded with an analysis halo on each side, every chunk is one row
 of the port's batched analysis stages (the ones make_batch_step runs:
 Dio -> StoneMask or Harvest -> CheapTrick -> D4C, then the codec when
 ``codec_dims`` is set), and each chunk's frame grid is aligned to the
-global grid, so stitching is slicing.  Chunking and stitching are host
-numpy, as in the JAX package.  Chunking approximates whole-signal
-analysis at the halo level; the default 0.45 s halo covers Harvest's
-longest influence radius (world_tpu/parallel/longform.py explains the
-budget), and tests/test_torch_longform.py holds chunked against
-whole-signal away from chunk edges.
+global grid, so stitching is slicing.  Chunking is host numpy, as in the
+JAX package.  Chunking approximates whole-signal analysis at the halo
+level; the default 0.45 s halo covers Harvest's longest influence radius
+(world_tpu/parallel/longform.py explains the budget), and
+tests/test_torch_longform.py holds chunked against whole-signal away
+from chunk edges.
 
-Rows run in batches of ``batch_lanes``; at most two batches are in
-flight ahead of the host copy of their results (pinned memory, CUDA
-events), so device memory grows with the batch, not with the signal.
+Results land in place: a request's f0, sp and ap are allocated once, and
+each chunk's core frames, one contiguous span of its row of the step's
+output, are copied straight into their consecutive rows of them.  On a
+card the outputs are page-locked (PyTorch's caching host allocator, so a
+dropped request's block serves the next) and the copies are the copy
+engine's, enqueued behind the batch's step; the host waits only for an
+event behind them.  Rows run in batches of ``batch_lanes``; at most two
+batches are in flight ahead of that wait, so device memory grows with
+the batch, not with the signal.  ``landed`` counts the chunks landed by
+the card's copy engine ("card") or copied on the host ("host").
 On a mesh (parallel.pipeline.make_mesh) the chunk rows ride 'data': each
 batch is padded to a multiple of n_data, run through the sharded step,
-gathered, and stitched on every rank.
+gathered, and its real rows landed on every rank.
 
 Long parameter tracks are synthesized through StreamingSynthesizer
 (reference src/synthesisrealtime.cpp), which carries the pulse phase
@@ -33,26 +40,34 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import download, span, sync, upload
+from ..device import span, sync, upload
 from ..models.realtime import StreamingSynthesizer
 from .pipeline import get_batch_step, run_global, step_device
 
-# Batches dispatched ahead of the host copy of their results.
+# Batches dispatched ahead of the wait for their results.
 IN_FLIGHT = 2
+
+landed = collections.Counter()      # chunks landed, by "card" / "host"
 
 
 class _Batch:
-    """A dispatched batch's results on their way to the host."""
+    """A dispatched batch's core frames on their way into the request's
+    outputs.  ``copies`` is [(target rows, source frames)]; on a card the
+    copies are non_blocking into page-locked memory, with an event
+    recorded behind them."""
 
-    def __init__(self, outs, dev):
-        self.host, self.event = download(outs, dev)
+    def __init__(self, copies, dev):
+        for dst, src in copies:
+            dst.copy_(src, non_blocking=True)
+        self.event = None
+        if dev.type != "cpu":
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(dev))
 
     def result(self):
         if self.event is not None:
             with sync("longform.wait"):
                 self.event.synchronize()
-        with span("longform.collect"):
-            return [h.numpy() for h in self.host]
 
 
 def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
@@ -69,9 +84,17 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
     converted there to float32 (exact /2**15, the wavread scaling);
     float32 input runs in float32, anything else in float64.  With
     ``mesh``, every rank calls it with the same signal and gets the whole
-    result; the device is the mesh's.  The host's work is the spans
-    ``longform.chunk``, ``longform.collect`` and ``longform.stitch``; the
-    wait for a batch's results is the sync site ``longform.wait``."""
+    result; the device is the mesh's.
+
+    Each batch's chunks land straight in the returned f0, sp and ap.  On a
+    card these are views of page-locked host memory, held until the
+    caller drops them; a caller that keeps many results should copy them
+    (``np.array(a, copy=True)``).  The host's work is the spans
+    ``longform.chunk`` (building the chunk rows), ``longform.stitch``
+    (a batch's landing: the outputs' allocation at the first batch, the
+    enqueue of its per-chunk copies and the event behind them) and
+    ``longform.collect`` (the outputs wrapped as numpy); the wait for a
+    batch is the sync site ``longform.wait``."""
     dev = step_device(mesh, device)
     x = np.asarray(x)
     n = len(x)
@@ -105,40 +128,45 @@ def analyze_long(x, fs, *, frame_period=5.0, chunk_seconds=8.0,
                           rng_mode=rng_mode, mesh=mesh, f0_method=f0_method,
                           with_synthesis=False, codec_dims=codec_dims,
                           device=dev)
+    on_card = dev.type != "cpu"
+    outs = []                        # f0, sp, ap over the global frames
 
-    def run(rows):
+    def run(b0, rows):
         if int_in:
             xb = upload(rows, torch.int16, dev).to(torch.float32) / 32768.0
         else:
             xb = upload(rows, dtype, dev)
-        return _Batch(run_global(step, xb, mesh)[:3], dev)
+        res = run_global(step, xb, mesh)[:3]
+        with span("longform.stitch"):
+            if not outs:
+                outs.extend(torch.empty((n_frames,) + t.shape[2:],
+                                        dtype=t.dtype, pin_memory=on_card)
+                            for t in res)
+            copies = []
+            for r in range(len(rows)):
+                # Chunk c's core frames follow its halo_f halo frames (chunk
+                # 0's halo lies before the signal) and are global frames
+                # c * core_f on, the last chunk's cut at n_frames.
+                g0 = (b0 + r) * core_f
+                m = min(core_f, n_frames - g0)
+                copies += [(o[g0:g0 + m], t[r, halo_f:halo_f + m])
+                           for o, t in zip(outs, res)]
+            batch = _Batch(copies, dev)
+        landed["card" if on_card else "host"] += len(rows)
+        return batch
 
     lanes = batch_lanes if batch_lanes else n_chunks
-    parts, inflight = [], collections.deque()
+    inflight = collections.deque()
     for b0 in range(0, n_chunks, lanes):
         if len(inflight) == IN_FLIGHT:
-            parts.append(inflight.popleft().result())
-        inflight.append(run(chunks[b0: b0 + lanes]))
-    parts.extend(b.result() for b in inflight)
+            inflight.popleft().result()
+        inflight.append(run(b0, chunks[b0: b0 + lanes]))
+    for b in inflight:
+        b.result()
+
     with span("longform.collect"):
-        f0c, spc, apc = (np.concatenate([p[i] for p in parts])
-                         for i in range(3))
-
-    # Stitch: core frames only.
-    with span("longform.stitch"):
-        f0 = np.zeros(n_frames, f0c.dtype)
-        sp = np.zeros((n_frames, spc.shape[2]), spc.dtype)
-        ap = np.zeros((n_frames, apc.shape[2]), apc.dtype)
-        for c in range(n_chunks):
-            g0 = c * core_f
-            g1 = min(n_frames, g0 + core_f)
-            l0 = g0 - starts_f[c]                # == halo_f except chunk 0
-            f0[g0:g1] = f0c[c, l0: l0 + g1 - g0]
-            sp[g0:g1] = spc[c, l0: l0 + g1 - g0]
-            ap[g0:g1] = apc[c, l0: l0 + g1 - g0]
-
-    tp = np.arange(n_frames) * fp_s
-    return tp, f0, sp, ap
+        tp = np.arange(n_frames) * fp_s
+        return (tp, *(o.numpy() for o in outs))
 
 
 def synthesize_long(f0, sp, ap, fs, *, frame_period=5.0, buffer_size=4096,
