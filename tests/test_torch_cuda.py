@@ -1704,10 +1704,13 @@ def _sync_blocks():
     return out
 
 
-def _syncs_by_site(fn):
+def _syncs_by_site(fn, events=False):
     """Run ``fn`` under set_sync_debug_mode("warn"): ({site: syncs the
     mode reports inside that site's block}, {site: device.sync.counts'
-    rise}).  A sync outside every block is put under None."""
+    rise}).  A sync outside every block is put under None.  With
+    ``events`` every torch.cuda.Event.synchronize is reported too: a
+    cudaEventSynchronize makes the host wait, but the mode does not see
+    it (c10/cuda/CUDAEvent.h)."""
     import traceback
     import warnings
 
@@ -1720,16 +1723,25 @@ def _syncs_by_site(fn):
         if "called a synchronizing CUDA operation" in str(message):
             seen.append(traceback.extract_stack()[:-1])
 
+    real_wait = torch.cuda.Event.synchronize
+
+    def recorded_wait(event):
+        seen.append(traceback.extract_stack()[:-1])
+        return real_wait(event)
+
     before = dict(device.sync.counts)
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
+        if events:
+            torch.cuda.Event.synchronize = recorded_wait
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.Event.synchronize = real_wait
     reported = {}
     for stack in seen:
         site = next((s for f in reversed(stack)
@@ -1797,3 +1809,48 @@ def test_step_launches_inside_its_span(cuda):
     assert len(spans) == 1 and len(kernels) > 100
     lo, hi = spans[0]
     assert all(lo <= launch_at[c] <= hi for c in kernels)
+
+
+def test_stream_syncs_are_the_counted_sites(cuda):
+    """Warmed streams at the streaming cell's settings (hold on miss) and
+    at the reference's semantics (a window that misses waits), each
+    closed and refreshed on the way: every sync that
+    set_sync_debug_mode("warn") reports, and every wait on a render's
+    event, lies in a ``device.sync`` block, and each site's count rises
+    by the syncs in it: ``stream.wait`` the waits, ``stream.dc`` the DC
+    remover's upload after each close."""
+    from world_tpu_torch.models.realtime import StreamingSynthesizer
+
+    f0, sp, ap = (golden(k).astype(np.float32)
+                  for k in ("harvest_f0", "cheaptrick_sp", "d4c_ap"))
+
+    def feed(s, lo, hi):
+        for i in range(lo, hi):
+            while not s.add_parameters(f0[i:i + 1], sp[i:i + 1],
+                                       ap[i:i + 1]):
+                s.synthesis2()
+            while s.synthesis2():
+                pass
+
+    synths = [StreamingSynthesizer(
+        22050, 5.0, 1024, 64, 100, rng_mode="fast", dtype=np.float32,
+        hold_on_miss=hold, dispatch_min_pulses=2 if hold else None,
+        hold_force_ms=8.0, device=cuda) for hold in (True, False)]
+    for s in synths:
+        s.warmup(32)
+        feed(s, 0, 60)
+
+    def run():
+        for s in synths:
+            feed(s, 60, 110)
+            s.close()
+            feed(s, 110, 150)
+            s.refresh()
+            feed(s, 0, 40)
+            s.close()
+
+    reported, counted = _syncs_by_site(run, events=True)
+    assert None not in reported
+    assert reported == counted
+    assert counted["stream.dc"] == 2 and counted["stream.wait"] > 0
+

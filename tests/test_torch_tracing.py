@@ -7,7 +7,10 @@ record_function is made; with it on the same run holds the spans
 sync range inside its step.  The host syncs of one Harvest+Synthesis
 step and one Dio+StoneMask+codec step, counted by site, equal a fixed
 table whether tracing is on or off, and the outputs are the same either
-way.
+way.  A stream at the streaming cell's settings makes no range and no
+record_function with tracing off, and with it on holds ``stream.add`` and
+``stream.synthesis2`` around each call, ``stream.render`` and
+``stream.absorb`` inside them and the DC remover's sync inside a render.
 """
 
 import os
@@ -19,6 +22,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from world_tpu_torch import device  # noqa: E402
+from world_tpu_torch.models.realtime import StreamingSynthesizer  # noqa: E402
 from world_tpu_torch.parallel.longform import analyze_long  # noqa: E402
 from world_tpu_torch.parallel.pipeline import make_batch_step  # noqa: E402
 
@@ -153,6 +157,65 @@ def test_outputs_equal_on_and_off(runs):
     for k in STEPS:
         assert all(torch.equal(a, b) for a, b in zip(off[k], on[k]))
     assert all(np.array_equal(a, b) for a, b in zip(off["long"], on["long"]))
+
+
+def stream(gold):
+    """40 golden frames pushed one at a time into a streaming synthesizer
+    at the streaming cell's settings, every buffer drained, then closed:
+    the buffers."""
+    f0, sp, ap = (gold[k].astype(np.float32)
+                  for k in ("harvest_f0", "cheaptrick_sp", "d4c_ap"))
+    s = StreamingSynthesizer(22050, 5.0, 1024, 64, 100, rng_mode="fast",
+                             dtype=np.float32, hold_on_miss=True,
+                             dispatch_min_pulses=2, hold_force_ms=8.0,
+                             device=CPU)
+    out = []
+    for i in range(40):
+        assert s.add_parameters(f0[i:i + 1], sp[i:i + 1], ap[i:i + 1])
+        while s.synthesis2():
+            out.append(s.buffer[:64].copy())
+    s.close()
+    return np.asarray(out)
+
+
+def profiled_stream(gold, on):
+    was = device.set_tracing(on)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = stream(gold)
+    finally:
+        device.set_tracing(was)
+    return host_ranges(prof, ("span:", "stage:")), out
+
+
+def test_stream_off_leaves_no_range_and_no_record_function(gold,
+                                                           monkeypatch):
+    ranges, out = profiled_stream(gold, False)
+    assert ranges == [] and len(out) > 20
+
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    assert np.array_equal(stream(gold), out)
+
+
+def test_stream_on_holds_its_spans_nested(gold):
+    ranges, out = profiled_stream(gold, True)
+    names = [r[0] for r in ranges]
+    calls = [r for r in ranges
+             if r[0] in ("span:stream.add", "span:stream.synthesis2")]
+    for part in ("render", "absorb"):
+        mine = [r for r in ranges if r[0] == "span:stream." + part]
+        assert mine and all(any(within(r, c) for c in calls)
+                            for r in mine), part
+    (dc,) = [r for r in ranges if r[0] == "span:sync.stream.dc"]
+    assert any(within(dc, r) for r in ranges
+               if r[0] == "span:stream.render")
+    assert names.count("span:stream.add") == 40
+    assert names.count("span:stream.synthesis2") > len(out)
+    assert np.array_equal(profiled_stream(gold, False)[1], out)
 
 
 def test_stage_clock_times_with_a_dict():

@@ -22,6 +22,16 @@ while its event has not completed; a window that needs a pending render
 waits on its event, or, with hold_on_miss, synthesis2 returns False
 without consuming state.  On the CPU everything is synchronous.
 
+Tracing (world_tpu_torch/device.py, off by default): the spans
+``stream.add`` (add_parameters), ``stream.synthesis2`` (each call),
+``stream.render`` (a render's launch: row gather, upload, render, OLA,
+download enqueue) and ``stream.absorb`` (a landed render taken in); the
+sync sites ``stream.wait`` (every wait on a render's event) and
+``stream.dc`` (the DC remover's upload from pageable memory, once a
+synthesizer).  ``counts`` counts, for every synthesizer of the process,
+synthesis2 ``calls``, ``buffers`` delivered, hold_on_miss ``holds``,
+``renders`` launched and the ``pulses`` they carry.
+
 Not ported, because it exists only for the JAX package's TPU round
 trip of ~30 ms per device interaction: the render worker thread and its
 fetch pool, span buckets and the fixed span lane count (eager PyTorch
@@ -38,7 +48,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..device import download, resolve_device, upload
+from ..device import download, resolve_device, span, sync, upload
 from ..ops import fftpack
 from ..ops import rng as rng_ops
 from ..ops.common import minimum_phase_spectrum
@@ -47,6 +57,10 @@ from ..ops.ola import ola_accumulate
 
 _MASK = 0xFFFFFFFF
 _FAST_SEED = 3
+
+# synthesis2 calls, buffers delivered, holds, renders launched and the
+# pulses they carry, over every synthesizer of the process.
+counts = collections.Counter()
 
 
 def _np_interp1(x, y, xi):
@@ -154,7 +168,8 @@ class _Render:
 
     def wait(self):
         if self.event is not None:
-            self.event.synchronize()
+            with sync("stream.wait"):
+                self.event.synchronize()
 
 
 def _pending(v):
@@ -296,7 +311,11 @@ class StreamingSynthesizer:
 
     def add_parameters(self, f0, spectrogram, aperiodicity):
         """AddParameters (src/synthesisrealtime.cpp:480-519).
-        Returns False when the ring is full."""
+        Returns False when the ring is full.  The span ``stream.add``."""
+        with span("stream.add"):
+            return self._add_parameters(f0, spectrogram, aperiodicity)
+
+    def _add_parameters(self, f0, spectrogram, aperiodicity):
         if self.head_pointer - self.current_pointer2 \
                 == self.number_of_pointers:
             return False
@@ -596,9 +615,10 @@ class StreamingSynthesizer:
     def _dc(self):
         if self._dc_remover is None:
             half = self.fft_size // 2
-            self._dc_remover = torch.as_tensor(
-                np.concatenate([np.zeros(half), _dc_remover_half(half)]),
-                dtype=self._tdtype, device=self.device)
+            with sync("stream.dc"):
+                self._dc_remover = torch.as_tensor(
+                    np.concatenate([np.zeros(half), _dc_remover_half(half)]),
+                    dtype=self._tdtype, device=self.device)
         return self._dc_remover
 
     def _device_rows(self, lo_min, hi_max):
@@ -637,10 +657,14 @@ class StreamingSynthesizer:
         return its _Render.  Batches of at least span_min_pulses pulses
         are overlap-added on the device into one span (span_render);
         smaller ones, or all with span_render=False, come back as
-        response rows for the host to add."""
+        response rows for the host to add.  The span ``stream.render``."""
+        with span("stream.render"):
+            return self._render(pulses)
+
+    def _render(self, pulses):
         fft = self.fft_size
-        span = self.span_render and len(pulses) >= self.span_min_pulses
-        if span:
+        as_span = self.span_render and len(pulses) >= self.span_min_pulses
+        if as_span:
             # The walk is in location order, but a batch can mix a retry
             # with later pulses; placing needs ascending locations.
             pulses = sorted(pulses, key=lambda pl: pl[5])
@@ -672,7 +696,7 @@ class StreamingSynthesizer:
             aps = ((1.0 - w_c) * lo_r[1] + w_c * hi_r[1]) ** 2
         resp = render_responses(envs, aps, vuv_d, self._noise(refs_d, refs),
                                 ns_d, self._dc(), fft)
-        if span:
+        if as_span:
             i = torch.arange(fft, device=self.device)
             resp = torch.where(i[None, :] >= clips_d[:, None], resp,
                                torch.zeros_like(resp))
@@ -703,6 +727,8 @@ class StreamingSynthesizer:
         render.locs = [p[5] for p in params]
         self._inflight.append(render)
         self.renders += 1
+        counts["renders"] += 1
+        counts["pulses"] += len(params)
         for k in keys:
             self._resp_cache[k] = ("pending", bid)
             self._staged.pop(k, None)
@@ -714,14 +740,16 @@ class StreamingSynthesizer:
             raise e
 
     def _absorb(self, render):
-        if render.kind == "span":
-            self._span_sink(render.base, render.host.numpy())
-            for k, loc in zip(render.keys, render.locs):
-                self._resp_cache[k] = ("span", loc)
-        else:
-            rows = render.host.numpy()
-            for k, row in zip(render.keys, rows):
-                self._resp_cache[k] = row
+        """Take a landed render in.  The span ``stream.absorb``."""
+        with span("stream.absorb"):
+            if render.kind == "span":
+                self._span_sink(render.base, render.host.numpy())
+                for k, loc in zip(render.keys, render.locs):
+                    self._resp_cache[k] = ("span", loc)
+            else:
+                rows = render.host.numpy()
+                for k, row in zip(render.keys, rows):
+                    self._resp_cache[k] = row
 
     def _drain(self):
         """Take in every render that has landed (without waiting)."""
@@ -793,7 +821,16 @@ class StreamingSynthesizer:
 
         Ahead renders are launched without waiting; a window whose
         responses are not in yet waits for them (reference semantics),
-        or with hold_on_miss returns False without consuming state."""
+        or with hold_on_miss returns False without consuming state.  The
+        span ``stream.synthesis2``."""
+        counts["calls"] += 1
+        with span("stream.synthesis2"):
+            ok = self._synthesis2()
+        if ok:
+            counts["buffers"] += 1
+        return ok
+
+    def _synthesis2(self):
         self._drain()
         # CheckSynthesizer (src/synthesisrealtime.cpp:415-426)
         if self.synthesized_sample + self.buffer_size >= self.last_location:
@@ -829,6 +866,7 @@ class StreamingSynthesizer:
                 state = self._window_probe()
                 if state != "ready":
                     self.holds += 1
+                    counts["holds"] += 1
                     return False
             self._hold_t0 = None
 

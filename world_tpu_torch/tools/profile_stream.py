@@ -9,9 +9,17 @@ batch size, on the card.
 The first form streams the golden utterance's parameters (all up front,
 float32, fast mode, 200 pointers, as chip_smoke.py's stream_f32) once to
 warm up, then once under torch.profiler, and reports: wall ms, renders,
-kernels launched on the card and per render, device-busy ms (kernel and
-copy times summed), the device idle share of the wall time, and the
-kernels that take most device time.
+kernels launched on the card and per render, device-busy ms, the device
+idle share of the wall time, and the kernels that take most device time.
+The busy ms is the kernel and copy times summed, not their union, so it
+counts twice what overlaps and the idle share is no more than an
+estimate.  Many streams fed a frame at a time, as a server feeds them,
+are the benchmark's cell rtsynth_22k.stream, which reads these from the
+synthesizer's spans instead: launches a render inside
+``span:stream.render`` (stream_launches_per_render) and the idle share
+as the union over the traced span (device_idle_share).  What this tool
+adds is one stream alone with every frame up front (the synthesizer's
+best case: one render covers many windows) and the kernels by name.
 
 The second runs analyze_long on chip_smoke.py's long-form input (the
 48 kHz golden utterance tiled to ``--seconds``, int16, Harvest, 6.25 s
