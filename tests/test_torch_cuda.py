@@ -841,6 +841,175 @@ def test_streaming_span_matches_rows_on_card(cuda):
     assert _snr_nonzero(rows, _stream(feed, 1)) > 200.0
 
 
+def _eager(monkeypatch):
+    """Turn the streaming synthesizer's graphs off: every render eager."""
+    from world_tpu_torch.models import realtime
+    monkeypatch.setattr(realtime, "_graph", lambda key: None)
+
+
+def _lookahead_pulses(dtype, rng_mode, **kw):
+    """A synthesizer on the card, warmed up to 32 pulses, holding the
+    golden frames, and the render parameters of its lookahead's pulses."""
+    from world_tpu_torch.models.realtime import StreamingSynthesizer
+    dt = np.dtype(dtype)
+    s = StreamingSynthesizer(22050, 5.0, 1024, 64, 100, rng_mode=rng_mode,
+                             dtype=dt, device="cuda", **kw).warmup(32)
+    assert s.add_parameters(*(golden(k).astype(dt) for k in (
+        "harvest_f0", "cheaptrick_sp", "d4c_ap")))
+    s._resp_cache.clear()
+    params, _ = s._collect_lookahead()
+    assert len(params) > 40
+    return s, params
+
+
+def _graphed_and_eager(s, pulses, monkeypatch):
+    """Render ``pulses`` replayed from a graph, then eagerly: both
+    landed."""
+    from world_tpu_torch.models import realtime
+    before = dict(realtime.counts)
+    graphed = s._render_dispatch(pulses)
+    graphed.wait()
+    with monkeypatch.context() as m:
+        _eager(m)
+        eager = s._render_dispatch(pulses)
+        eager.wait()
+    assert realtime.counts["graphed"] == before["graphed"] + 1
+    assert realtime.counts["captures"] == before["captures"]
+    assert (graphed.kind, graphed.base) == (eager.kind, eager.base)
+    return graphed, eager
+
+
+@pytest.mark.parametrize("rng_mode", ["fast", "none"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_streaming_graph_rows_match_eager(cuda, dtype, rng_mode,
+                                          monkeypatch):
+    """A render of 1 to 7 pulses (response rows) replayed from its graph
+    equals the eager render bit for bit."""
+    s, params = _lookahead_pulses(dtype, rng_mode)
+    for lanes in range(1, 8):
+        graphed, eager = _graphed_and_eager(s, params[lanes:2 * lanes],
+                                            monkeypatch)
+        assert graphed.kind == "rows" and graphed.host.shape[0] == lanes
+        assert torch.equal(graphed.host, eager.host), lanes
+    s.close()
+
+
+@pytest.mark.parametrize("rng_mode", ["fast", "none"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_streaming_spans_eager_wide_rows_graphed(cuda, dtype, rng_mode,
+                                                 monkeypatch):
+    """Spans (8 pulses and more, span_render on) render eagerly: no graph,
+    one OLA launch each, counted.  With span_render off, renders of 8 and
+    32 pulses come back as rows replayed from the graphs warm-up
+    captured, bit for bit the eager ones."""
+    from world_tpu_torch.models import realtime
+    from world_tpu_torch.ops.ola import ola_accumulate
+    s, params = _lookahead_pulses(dtype, rng_mode)
+    for pulses in (params[:8], params[8:40]):
+        before = (realtime.counts["graphed"], ola_accumulate.launches)
+        render = s._render_dispatch(pulses)
+        render.wait()
+        assert render.kind == "span"
+        assert (realtime.counts["graphed"], ola_accumulate.launches) \
+            == (before[0], before[1] + 1)
+    s.close()
+    s, params = _lookahead_pulses(dtype, rng_mode, span_render=False)
+    for pulses in (params[:8], params[8:40]):
+        graphed, eager = _graphed_and_eager(s, pulses, monkeypatch)
+        assert graphed.kind == "rows"
+        assert torch.equal(graphed.host, eager.host), len(pulses)
+    s.close()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_synthesize_long_graphed_matches_eager(cuda, dtype, monkeypatch):
+    """synthesize_long on the golden frames, at its defaults and with one
+    frame a push and small buffers (some of whose renders are rows that
+    replay the graphs a warm-up captured), equals the same calls with
+    graphs off, sample for sample."""
+    from world_tpu_torch.models import realtime
+    from world_tpu_torch.models.realtime import StreamingSynthesizer
+    from world_tpu_torch.parallel import synthesize_long
+
+    dt = np.dtype(dtype)
+    f0, sp, ap = (golden(k).astype(dt) for k in (
+        "harvest_f0", "cheaptrick_sp", "d4c_ap"))
+    StreamingSynthesizer(22050, 5.0, 1024, 64, 16, rng_mode="fast",
+                         dtype=dt, device="cuda").warmup(7)
+    small = dict(frames_per_push=1, buffer_size=64)
+    graphed = []
+    for kw in ({}, small):
+        before = realtime.counts["graphed"]
+        graphed.append(synthesize_long(f0, sp, ap, 22050, device="cuda",
+                                       **kw))
+        if kw:
+            assert realtime.counts["graphed"] > before
+    _eager(monkeypatch)
+    for kw, y in zip(({}, small), graphed):
+        assert np.array_equal(
+            synthesize_long(f0, sp, ap, 22050, device="cuda", **kw), y)
+
+
+def test_exact_and_cpu_streams_never_graphed(cuda):
+    """rng_mode "exact" on the card and a CPU synthesizer, warmed up and
+    streamed, neither capture nor replay a graph."""
+    from world_tpu_torch.models import realtime
+    before = dict(realtime.counts)
+    for device, feed in (("cuda", _golden_feed(1)), ("cpu", _golden_feed(7))):
+        s = W.StreamingSynthesizer(22050, 5.0, 1024, 64, 100,
+                                   device=device).warmup(8)
+        for f0, sp, ap in feed:
+            assert s.add_parameters(f0, sp, ap)
+            while s.synthesis2():
+                pass
+        s.close()
+        assert s.renders > 0
+    for k in ("graphed", "captures"):
+        assert realtime.counts[k] == before[k], k
+
+
+def test_stream_buffers_graphed_match_eager(cuda, monkeypatch):
+    """One synthesizer at the streaming cell's settings, warmed up as the
+    streaming benchmark warms it and fed the golden frames one a push,
+    delivers the same buffers with every render replayed from a graph as
+    with graphs off.  Two settings are pinned so that batching cannot
+    follow the clock: a render counts as landed once waited for, and a
+    missed window renders at once (hold_force_ms 0)."""
+    from world_tpu_torch.models import realtime
+    from world_tpu_torch.models.realtime import StreamingSynthesizer
+
+    monkeypatch.setattr(realtime._Render, "done",
+                        lambda self: self.wait() or True)
+    f0, sp, ap = (golden(k).astype(np.float32)
+                  for k in ("harvest_f0", "cheaptrick_sp", "d4c_ap"))
+
+    def play():
+        s = StreamingSynthesizer(
+            22050, 5.0, 1024, 64, 100, rng_mode="fast", dtype=np.float32,
+            hold_on_miss=True, dispatch_min_pulses=2, hold_force_ms=0.0,
+            device="cuda").warmup()
+        before = dict(realtime.counts)
+        out = []
+        for i in range(len(f0)):
+            while not s.add_parameters(f0[i:i + 1], sp[i:i + 1],
+                                       ap[i:i + 1]):
+                s.synthesis2()
+            while s.synthesis2():
+                out.append(s.buffer[:64].copy())
+        s.close()
+        return out, {k: realtime.counts[k] - before[k]
+                     for k in ("renders", "graphed", "captures")}
+
+    graphed, rise = play()
+    assert rise["graphed"] == rise["renders"] > 10
+    assert rise["captures"] == 0
+    _eager(monkeypatch)
+    eager, rise = play()
+    assert rise["graphed"] == 0 and rise["renders"] > 10
+    assert len(graphed) == len(eager) > 150
+    assert all(np.array_equal(a, b) for a, b in zip(graphed, eager))
+
+
 def _long_vowelish(fs, seconds, seed=1):
     """tests/test_longform.py::_long_vowelish (that module imports JAX)."""
     rng = np.random.RandomState(seed)
@@ -1814,11 +1983,15 @@ def test_step_launches_inside_its_span(cuda):
 def test_stream_syncs_are_the_counted_sites(cuda):
     """Warmed streams at the streaming cell's settings (hold on miss) and
     at the reference's semantics (a window that misses waits), each
-    closed and refreshed on the way: every sync that
+    closed and refreshed on the way, their renders replayed from the
+    graphs that warm-up captured where they fit: every sync that
     set_sync_debug_mode("warn") reports, and every wait on a render's
     event, lies in a ``device.sync`` block, and each site's count rises
-    by the syncs in it: ``stream.wait`` the waits, ``stream.dc`` the DC
-    remover's upload after each close."""
+    by the syncs in it: ``stream.wait`` the waits, and ``stream.dc``
+    never (the DC remover is the process's since warm-up, and a close
+    keeps it).  Replays add no sync, and no graph is captured after
+    warm-up."""
+    from world_tpu_torch.models import realtime
     from world_tpu_torch.models.realtime import StreamingSynthesizer
 
     f0, sp, ap = (golden(k).astype(np.float32)
@@ -1849,8 +2022,11 @@ def test_stream_syncs_are_the_counted_sites(cuda):
             feed(s, 0, 40)
             s.close()
 
+    before = dict(realtime.counts)
     reported, counted = _syncs_by_site(run, events=True)
     assert None not in reported
     assert reported == counted
-    assert counted["stream.dc"] == 2 and counted["stream.wait"] > 0
+    assert "stream.dc" not in counted and counted["stream.wait"] > 0
+    assert realtime.counts["graphed"] > before["graphed"]
+    assert realtime.counts["captures"] == before["captures"]
 

@@ -404,3 +404,97 @@ def test_constructor_matches_jax():
     for name, p in theirs.items():
         if name in mine:
             assert mine[name].default == p.default, name
+
+
+class _Stream:
+    cuda_stream = 7
+
+
+class _Landed:
+    @staticmethod
+    def wait():
+        pass
+
+
+def test_graph_keys(gold, monkeypatch):
+    """The graphs a card's synthesizer captures in warm-up (read on the
+    CPU with a stand-in stream and cuFFT plan cache): one a lane count
+    that renders response rows, below span_min_pulses with span_render
+    on and up to 32 pulses with it off; the span lane counts and any
+    with rng_mode "exact" run once eagerly instead, as every lane count
+    does while cuFFT's plan cache is full."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    cache = type("Cache", (), {"size": 5, "max_size": 4096})()
+    monkeypatch.setattr(torch.backends.cuda, "cufft_plan_cache", [cache])
+
+    def warm(s, n):
+        monkeypatch.setattr(realtime, "_graphs", {})
+        captured, eager = [], []
+        monkeypatch.setattr(realtime, "_capture", captured.append)
+        monkeypatch.setattr(s, "_render_dispatch",
+                            lambda p: eager.append(len(p)) or _Landed)
+        s.warmup(n)
+        return captured, eager
+
+    s = synth(gold, 100, dtype=np.float32, rng_mode="fast", device="cuda")
+    captured, eager = warm(s, 32)
+    assert captured == [(s.device, 7, torch.float32, 1024, "fast", True,
+                         k) for k in range(1, 8)]
+    assert eager == list(range(8, 33))
+    assert s._graph_key(32) is not None and s._graph_key(33) is None
+    rows = synth(gold, 100, rng_mode="none", span_render=False,
+                 device="cuda")
+    captured, eager = warm(rows, 33)
+    assert [k[-1] for k in captured] == list(range(1, 33)) and eager == [33]
+    assert captured[0][2:6] == (torch.float64, 1024, "none", False)
+    assert warm(synth(gold, 100, device="cuda"), 4) == (
+        [], [1, 2, 3, 4])                                        # exact
+    cache.size = 4096
+    assert warm(s, 3) == ([], [1, 2, 3])                  # the cache full
+    assert synth(gold, 100, dtype=np.float32, rng_mode="fast")._graph_key(
+        1) is None                                               # the CPU
+
+
+def test_graphs_dropped_when_cufft_plans_may_be_gone(monkeypatch):
+    """The device's graphs are kept while cuFFT's plan cache grows below
+    its capacity, and dropped once it shrinks or fills: a key met after
+    is first rendered eagerly again."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    cache = type("Cache", (), {"size": 3, "max_size": 10})()
+    monkeypatch.setattr(torch.backends.cuda, "cufft_plan_cache", [cache])
+    dev, other = torch.device("cuda"), torch.device("cuda", 1)
+    graphs = {(dev, 1): "g1", (dev, 2): "g2", (other, 1): "h"}
+    monkeypatch.setattr(realtime, "_graphs", dict(graphs))
+    monkeypatch.setattr(realtime, "_plan_cache_sizes", {})
+    assert realtime._plans_kept(dev)
+    cache.size = 9
+    assert realtime._graph((dev, 1)) == "g1"
+    cache.size = 8                                           # a clear
+    assert not realtime._plans_kept(dev)
+    assert realtime._graphs == {(other, 1): "h"}
+    assert realtime._graph((dev, 1)) is None                 # met anew
+    assert realtime._graphs[(dev, 1)] is None
+    cache.size = 10                                          # full
+    assert realtime._graph((dev, 1)) is None
+    assert (dev, 1) not in realtime._graphs
+
+
+def test_cpu_stream_never_graphed(gold):
+    """A warmed CPU synthesizer in fast mode renders every pulse eagerly:
+    no graph captured or replayed."""
+    before = dict(realtime.counts)
+    out, s = run_chunked(gold, 3, rng_mode="fast")
+    s.warmup(10)
+    assert s.renders > 0 and np.isfinite(out).all()
+    assert realtime.counts["graphed"] == before["graphed"]
+    assert realtime.counts["captures"] == before["captures"]
+
+
+def test_upload_into_out():
+    """device.upload(out=) writes into the given tensor and returns it."""
+    from world_tpu_torch.device import upload
+    dst = torch.zeros((2, 3), dtype=torch.float32)
+    a = np.arange(6.0).reshape(2, 3)
+    assert upload(a, torch.float32, torch.device("cpu"), out=dst) is dst
+    assert torch.equal(dst, torch.as_tensor(a, dtype=torch.float32))

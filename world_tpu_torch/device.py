@@ -48,16 +48,20 @@ def as_tensor(x, device, dtype=None):
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
-def upload(arr, dtype, device):
-    """numpy array -> tensor of ``dtype`` on ``device``.  On a card the
+def upload(arr, dtype, device, out=None):
+    """numpy array -> tensor of ``dtype`` on ``device``, or into ``out``
+    (of that dtype, shape and device), which is returned.  On a card the
     copy goes through pinned memory and is non_blocking, so the host does
     not wait for the work already queued on the stream.  The span
     ``upload``."""
     with span("upload"):
         if device.type == "cpu":
-            return torch.as_tensor(arr, dtype=dtype)
+            t = torch.as_tensor(arr, dtype=dtype)
+            return t if out is None else out.copy_(t)
         host = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
         host.numpy()[...] = arr
+        if out is not None:
+            return out.copy_(host, non_blocking=True)
         return host.to(device, non_blocking=True)
 
 

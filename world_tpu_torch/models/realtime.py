@@ -22,22 +22,44 @@ while its event has not completed; a window that needs a pending render
 waits on its event, or, with hold_on_miss, synthesis2 returns False
 without consuming state.  On the CPU everything is synchronous.
 
+CUDA graphs.  A render's device work is a fixed chain of ~170 small
+kernels whose shapes follow only its pulse count, so launching them costs
+the host far more than running them costs the card.  On a card, a render
+of response rows (fewer than span_min_pulses pulses, or any count with
+span_render off) of at most _GRAPH_LANES pulses that reads at most
+_GRAPH_FRAMES parameter frames replays a CUDA graph of that chain
+instead: its inputs are copied into blocks at fixed addresses, the graph
+is replayed and its output downloaded.  A graph is keyed by (device,
+stream, dtype, fft size, rng mode, where the envelope is interpolated,
+pulse count).  Graphs and the DC remover are shared by every synthesizer
+of the process; the graphs of one (device, stream, dtype, fft size) share
+their input blocks and one memory pool, and their replays, copies and
+downloads are ordered on that stream, so no two of them run at once.
+warmup() captures every key a synthesizer's rows can take; a key first
+met later is rendered eagerly and captured at its second use.  The CPU,
+rng_mode "exact" (its noise's shape follows the host's bounds on the
+draws), spans and larger renders run the same chain eagerly.  A graph
+runs the cuFFT plans it captured: while a plan may have left cuFFT's plan
+cache (the cache shrank, or filled up and evicted), the device's graphs
+are dropped and renders run eagerly (_plans_kept).
+
 Tracing (world_tpu_torch/device.py, off by default): the spans
 ``stream.add`` (add_parameters), ``stream.synthesis2`` (each call),
-``stream.render`` (a render's launch: row gather, upload, render, OLA,
-download enqueue) and ``stream.absorb`` (a landed render taken in); the
-sync sites ``stream.wait`` (every wait on a render's event) and
-``stream.dc`` (the DC remover's upload from pageable memory, once a
-synthesizer).  ``counts`` counts, for every synthesizer of the process,
+``stream.render`` (a render's launch: row gather, upload, render or graph
+replay, download enqueue) and ``stream.absorb`` (a landed render taken
+in); the sync sites ``stream.wait`` (every wait on a render's event) and
+``stream.dc`` (the DC remover's upload from pageable memory: once a
+synthesizer on the CPU, once a process and device, dtype and fft size on
+a card).  ``counts`` counts, for every synthesizer of the process,
 synthesis2 ``calls``, ``buffers`` delivered, hold_on_miss ``holds``,
-``renders`` launched and the ``pulses`` they carry.
+``renders`` launched, the ``pulses`` they carry, the renders ``graphed``
+(replayed from a graph) and the graphs' ``captures``.
 
 Not ported, because it exists only for the JAX package's TPU round
 trip of ~30 ms per device interaction: the render worker thread and its
-fetch pool, span buckets and the fixed span lane count (eager PyTorch
-compiles nothing per shape), the warm-up compile of every bucket, and
-the donated device parameter ring (here each chunk keeps its own device
-rows, freed when the ring pruning drops the chunk).
+fetch pool, the fixed span lane count, and the donated device parameter
+ring (here each chunk keeps its own device rows, freed when the ring
+pruning drops the chunk).
 """
 
 import collections
@@ -57,10 +79,24 @@ from ..ops.ola import ola_accumulate
 
 _MASK = 0xFFFFFFFF
 _FAST_SEED = 3
+# The largest render a graph replays: pulses and parameter frames read.
+_GRAPH_LANES = 32
+_GRAPH_FRAMES = 128
 
-# synthesis2 calls, buffers delivered, holds, renders launched and the
-# pulses they carry, over every synthesizer of the process.
-counts = collections.Counter()
+# synthesis2 calls, buffers delivered, holds, renders launched, the
+# pulses they carry, renders replayed from a graph and graphs captured,
+# over every synthesizer of the process.
+counts = collections.Counter(graphed=0, captures=0)
+
+# Process-wide, so that every synthesizer replays what one warm-up
+# captured: key -> _Graph, or None once the key was met (it is captured
+# at its next use); (device, stream, dtype, fft size) -> _Blocks;
+# (device, dtype, fft size) -> the DC remover on a card; device -> the
+# size of its cuFFT plan cache at the last lookup.
+_graphs = {}
+_blocks = {}
+_dc_removers = {}
+_plan_cache_sizes = {}
 
 
 def _np_interp1(x, y, xi):
@@ -140,6 +176,177 @@ def render_responses(envs, aps, vuvs, noise, noise_sizes, dc_remover,
     return (periodic * sqrt_noise + aperiodic) / fft_size
 
 
+def _dc_remover(device, dtype, fft_size):
+    """The DC remover (fft_size,), zero in its first half, uploaded from
+    pageable memory (the sync site ``stream.dc``): once a process and
+    (device, dtype, fft_size) on a card, where graphs read it; anew each
+    call on the CPU."""
+    key = (device, dtype, fft_size)
+    dc = _dc_removers.get(key)
+    if dc is None:
+        half = fft_size // 2
+        with sync("stream.dc"):
+            dc = torch.as_tensor(
+                np.concatenate([np.zeros(half), _dc_remover_half(half)]),
+                dtype=dtype, device=device)
+        if device.type == "cuda":
+            _dc_removers[key] = dc
+    return dc
+
+
+def _noise(rng_mode, refs, fft_size, dtype, bounds=None):
+    """The (P, fft_size) noise of the pulses whose RNG references are
+    ``refs`` (int64 (P,) on the device); ``bounds`` is the host's (min,
+    max) of them, which "exact" needs."""
+    if rng_mode == "exact":
+        return rng_ops.randn_blocks_at(refs, fft_size,
+                                       bounds=bounds).to(dtype)
+    if rng_mode == "fast":
+        return fast_noise(_FAST_SEED, refs, fft_size, dtype)
+    return torch.zeros((len(refs), fft_size), dtype=dtype,
+                       device=refs.device)
+
+
+def _respond(scalars, params, interp, rng_mode, dc_remover, fft_size,
+             y_padded=None, bounds=None):
+    """A render's device work, eager or captured.  ``scalars`` float64
+    (8, P): each pulse's noise size, RNG reference, offset in the span,
+    clip, lo and hi rows, vuv and weight.  With ``interp``, ``params``
+    holds parameter rows (frames, 2, fft/2+1) of |sp| and clipped ap, lerped
+    here between rows lo and hi; else the lerped envelopes and squared
+    aperiodicities (2, P, fft/2+1).  Returns the responses (P, fft), or
+    with ``y_padded`` their overlap-add (y_padded,)."""
+    ns, refs, offs, clips, lo, hi = scalars[:6].to(torch.int64)
+    vuv, w = scalars[6:].to(dc_remover.dtype)
+    if interp:
+        w = w[:, None]
+        lo_r, hi_r = params[lo], params[hi]
+        envs = (1.0 - w) * lo_r[:, 0] + w * hi_r[:, 0]
+        aps = ((1.0 - w) * lo_r[:, 1] + w * hi_r[:, 1]) ** 2
+    else:
+        envs, aps = params
+    resp = render_responses(
+        envs, aps, vuv, _noise(rng_mode, refs, fft_size, dc_remover.dtype,
+                               bounds), ns, dc_remover, fft_size)
+    if y_padded is None:
+        return resp
+    i = torch.arange(fft_size, device=resp.device)
+    resp = torch.where(i[None, :] >= clips[:, None], resp,
+                       torch.zeros_like(resp))
+    return ola_accumulate(resp[None], offs.to(torch.int32)[None],
+                          y_padded=y_padded)[0]
+
+
+class _Blocks:
+    """What the graphs of one (device, stream, dtype, fft size) share,
+    whatever their pulse count: the blocks at fixed addresses they read
+    (the per-pulse scalars; the parameter rows, or the lerped envelopes
+    and aperiodicities), the stream that captures them and their memory
+    pool.  Their replays are ordered on their stream, so one replay's
+    intermediates in the pool are dead before the next one's."""
+
+    def __init__(self, device, dtype, fft_size):
+        self.scalars = torch.zeros(8 * _GRAPH_LANES, dtype=torch.float64,
+                                   device=device)
+        self.params = torch.zeros((_GRAPH_FRAMES, 2, fft_size // 2 + 1),
+                                  dtype=dtype, device=device)
+        self.side = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+
+class _Graph:
+    """A captured render: its CUDA graph, the views of the blocks it
+    reads (``scalars`` (8, P); ``params`` the rows (_GRAPH_FRAMES, 2,
+    fft/2+1) or the lerped (2, P, fft/2+1)) and its output."""
+    __slots__ = ("graph", "scalars", "params", "out")
+
+    def __init__(self, graph, scalars, params, out):
+        self.graph, self.scalars, self.params, self.out = \
+            graph, scalars, params, out
+
+    def run(self, scalars, params):
+        """Copy a render's inputs into the blocks and replay: ``scalars``
+        numpy (8, P); ``params`` numpy (2, P, fft/2+1), or the parts of
+        the device rows the pulses read.  Returns the responses (P,
+        fft)."""
+        dev = self.out.device
+        upload(scalars, torch.float64, dev, out=self.scalars)
+        if isinstance(params, np.ndarray):
+            upload(params, self.params.dtype, dev, out=self.params)
+        else:
+            torch.cat(params, 0,
+                      out=self.params[:sum(len(p) for p in params)])
+        self.graph.replay()
+        return self.out
+
+
+def _graph(key):
+    """The graph of ``key`` (StreamingSynthesizer._graph_key), captured
+    at the key's second use; None at its first, which renders eagerly,
+    and while the device's cuFFT plans may be gone."""
+    if not _plans_kept(key[0]):
+        return None
+    if key in _graphs:
+        return _graphs[key] or _capture(key)
+    _graphs[key] = None
+    return None
+
+
+def _plans_kept(device):
+    """Whether every cuFFT plan that the graphs of ``device`` captured is
+    still in its plan cache.  A plan leaves the cache only when the cache
+    is cleared or shrunk, so that its size falls, or when a plan is added
+    to a full cache.  Where that may have happened, the device's graphs
+    are dropped (each key is captured anew at its second use after) and
+    False returned, as it is while the cache stays full."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    cache = torch.backends.cuda.cufft_plan_cache[index]
+    size = cache.size
+    kept = _plan_cache_sizes.get(device, 0) <= size < cache.max_size
+    _plan_cache_sizes[device] = size
+    if not kept:
+        for key in [k for k in _graphs if k[0] == device]:
+            del _graphs[key]
+    return kept
+
+
+def _capture(key):
+    """Run the render of ``key`` once eagerly on its blocks (cuFFT's
+    plans), then capture it on the blocks' side stream into their pool.
+    Counted as ``captures``."""
+    device, _, dtype, fft_size, rng_mode, interp, lanes = key
+    blocks = _blocks.get(key[:4])
+    if blocks is None:
+        blocks = _blocks[key[:4]] = _Blocks(device, dtype, fft_size)
+    half = fft_size // 2 + 1
+    scalars = blocks.scalars[:8 * lanes].view(8, lanes)
+    params = blocks.params if interp else \
+        blocks.params.view(-1)[:2 * lanes * half].view(2, lanes, half)
+    dc = _dc_remover(device, dtype, fft_size)
+
+    def body():
+        return _respond(scalars, params, interp, rng_mode, dc, fft_size)
+
+    # The blocks hold the last render's inputs, laid out for its pulse
+    # count: zeros are in range for every gather.
+    scalars.zero_()
+    body()
+    graph = torch.cuda.CUDAGraph()
+    current = torch.cuda.current_stream(device)
+    blocks.side.wait_stream(current)
+    with torch.cuda.stream(blocks.side):
+        graph.capture_begin(pool=blocks.pool)
+        try:
+            result = body()
+        finally:
+            graph.capture_end()
+    current.wait_stream(blocks.side)
+    counts["captures"] += 1
+    _graphs[key] = _Graph(graph, scalars, params, result)
+    return _graphs[key]
+
+
 class _Chunk:
     __slots__ = ("f0_length", "f0_origin", "spectrogram", "aperiodicity",
                  "interpolated_vuv", "pulse_locations",
@@ -151,7 +358,7 @@ class _Chunk:
         self.interpolated_vuv = None
         self.pulse_locations = None
         self.pulse_locations_index = None
-        self.params = None       # device (2, F, fft/2+1): |sp|, clipped ap
+        self.params = None       # device (F, 2, fft/2+1): |sp|, clipped ap
 
 
 class _Render:
@@ -306,7 +513,8 @@ class StreamingSynthesizer:
 
     def _upload_params(self, chunk):
         rows = np.stack([np.abs(chunk.spectrogram),
-                         np.clip(chunk.aperiodicity, 0.001, 1.0 - 1e-12)])
+                         np.clip(chunk.aperiodicity, 0.001, 1.0 - 1e-12)],
+                        1)
         return upload(rows.astype(self.dtype), self._tdtype, self.device)
 
     def add_parameters(self, f0, spectrogram, aperiodicity):
@@ -614,43 +822,42 @@ class StreamingSynthesizer:
     # -- rendering -------------------------------------------------------
     def _dc(self):
         if self._dc_remover is None:
-            half = self.fft_size // 2
-            with sync("stream.dc"):
-                self._dc_remover = torch.as_tensor(
-                    np.concatenate([np.zeros(half), _dc_remover_half(half)]),
-                    dtype=self._tdtype, device=self.device)
+            self._dc_remover = _dc_remover(self.device, self._tdtype,
+                                           self.fft_size)
         return self._dc_remover
 
     def _device_rows(self, lo_min, hi_max):
-        """Device parameter rows of frames [lo_min, hi_max], gathered
-        from the chunks that hold them: ((2, F, fft/2+1), first frame)."""
-        parts, first, nxt = [], None, None
+        """The device parameter rows of frames [lo_min, hi_max]: the
+        parts, one a chunk that holds some of them, which stack into
+        (hi_max - lo_min + 1, 2, fft/2+1)."""
+        parts, nxt = [], lo_min
         for p in sorted(self.chunks):
             c = self.chunks[p]
             end = c.f0_origin + c.f0_length
-            if end <= lo_min or c.f0_origin > hi_max:
+            if end <= nxt or c.f0_origin > hi_max:
                 continue
-            if nxt is not None and c.f0_origin != nxt:
+            if c.f0_origin > nxt:
                 break
             if c.params is None:
                 c.params = self._upload_params(c)
-            parts.append(c.params)
-            first = c.f0_origin if first is None else first
-            nxt = end
-        if first is None or first > lo_min or nxt <= hi_max:
+            parts.append(c.params[nxt - c.f0_origin:
+                                  min(end, hi_max + 1) - c.f0_origin])
+            nxt = min(end, hi_max + 1)
+        if nxt <= hi_max:
             raise RuntimeError(f"frames {lo_min}-{hi_max} are not held by "
                                "the synthesizer's chunks")
-        return (parts[0] if len(parts) == 1 else torch.cat(parts, 1)), first
+        return parts
 
-    def _noise(self, refs_dev, refs):
-        fft, dt = self.fft_size, self._tdtype
-        if self.rng_mode == "exact":
-            return rng_ops.randn_blocks_at(
-                refs_dev, fft, bounds=(int(refs.min()), int(refs.max()))
-            ).to(dt)
-        if self.rng_mode == "fast":
-            return fast_noise(_FAST_SEED, refs_dev, fft, dt)
-        return torch.zeros((len(refs), fft), dtype=dt, device=self.device)
+    def _graph_key(self, lanes):
+        """The key of the graph of a render of ``lanes`` pulses as
+        response rows, or None where it runs eagerly: on the CPU, with
+        rng_mode "exact", or above _GRAPH_LANES pulses."""
+        if (self.device.type != "cuda" or self.rng_mode == "exact"
+                or lanes > _GRAPH_LANES):
+            return None
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        return (self.device, stream, self._tdtype, self.fft_size,
+                self.rng_mode, self.device_params, lanes)
 
     def _render_dispatch(self, pulses):
         """Launch one render of ``pulses`` (tuples of _pulse_params) and
@@ -677,36 +884,41 @@ class StreamingSynthesizer:
         # the reference's ring add never reaches below buffer index 0
         # (src/synthesisrealtime.cpp:577-600).
         clips = np.maximum(0, bs * (locs // bs) - (locs - fft // 2 + 1))
+        interp = pulses[0][0] is None
+        if interp:
+            # lo and hi become rows of the frames the pulses read.
+            first = int(lo.min())
+            params = self._device_rows(first, int(hi.max()))
+            lo, hi = lo - first, hi - first
+            frames = int(hi.max()) + 1
+        else:
+            params = np.stack([np.stack([pl[0] for pl in pulses]),
+                               np.stack([pl[1] for pl in pulses])])
+            frames = 0
         # Every per-pulse scalar in one upload (integers are exact in
         # float64).
-        dev = upload(np.stack([ns, refs, offs, clips, lo, hi, vuv, w]),
-                     torch.float64, self.device)
-        ns_d, refs_d, offs_d, clips_d, lo_d, hi_d = dev[:6].to(torch.int64)
-        vuv_d, w_d = dev[6:].to(self._tdtype)
-        if pulses[0][0] is not None:
-            envs, aps = upload(np.stack(
-                [np.stack([pl[0] for pl in pulses]),
-                 np.stack([pl[1] for pl in pulses])]), self._tdtype,
-                self.device)
+        scalars = np.stack([ns, refs, offs, clips, lo, hi, vuv, w])
+        y_padded = int(offs[-1]) + fft if as_span else None
+        key = None if as_span or frames > _GRAPH_FRAMES else \
+            self._graph_key(len(pulses))
+        graph = None if key is None else _graph(key)
+        if graph is not None:
+            out = graph.run(scalars, params)
+            counts["graphed"] += 1
         else:
-            rows, first = self._device_rows(int(lo.min()), int(hi.max()))
-            w_c = w_d[:, None]
-            lo_r, hi_r = rows[:, lo_d - first], rows[:, hi_d - first]
-            envs = (1.0 - w_c) * lo_r[0] + w_c * hi_r[0]
-            aps = ((1.0 - w_c) * lo_r[1] + w_c * hi_r[1]) ** 2
-        resp = render_responses(envs, aps, vuv_d, self._noise(refs_d, refs),
-                                ns_d, self._dc(), fft)
-        if as_span:
-            i = torch.arange(fft, device=self.device)
-            resp = torch.where(i[None, :] >= clips_d[:, None], resp,
-                               torch.zeros_like(resp))
-            out = ola_accumulate(resp[None], offs_d.to(torch.int32)[None],
-                                 y_padded=int(offs[-1]) + fft)[0]
-            kind = "span"
-        else:
-            out, kind = resp, "rows"
+            if not interp:
+                params = upload(params, self._tdtype, self.device)
+            elif len(params) > 1:
+                params = torch.cat(params, 0)
+            else:
+                params = params[0]
+            bounds = (int(refs.min()), int(refs.max())) \
+                if self.rng_mode == "exact" else None
+            out = _respond(
+                upload(scalars, torch.float64, self.device), params, interp,
+                self.rng_mode, self._dc(), fft, y_padded, bounds=bounds)
         (host,), event = download([out], self.device)
-        return _Render(kind, base, host, event)
+        return _Render("span" if as_span else "rows", base, host, event)
 
     def _submit(self, keys, params):
         """Launch a render of ``params`` and mark its keys pending.  A
@@ -771,16 +983,25 @@ class StreamingSynthesizer:
             self._inflight.popleft().wait()
 
     def warmup(self, max_pulses=None):
-        """Build the OLA kernel and run one render at each lane count
-        1..max_pulses (default lookahead_pulses), so that cuFFT's plans
-        exist before real time.  Its renders touch no stream state."""
+        """Make every render of 1..max_pulses pulses (default
+        lookahead_pulses) ready before real time: on a card, capture the
+        graph of each lane count that renders rows and that no
+        synthesizer of the process has captured; run each other lane
+        count once, so that cuFFT's plans exist and the OLA kernel is
+        built.  Its renders touch no stream state."""
         n = max(max_pulses or max(self.lookahead_pulses, 1), 1)
         ones = np.ones(self.fft_size // 2 + 1, self.dtype)
         half = self.fft_size // 2
         for lanes in range(1, n + 1):
-            self._render_dispatch(
-                [(ones, ones, 0.0, 0, 0, half + k, 0, 0, 0.0)
-                 for k in range(lanes)]).wait()
+            rows = not (self.span_render and lanes >= self.span_min_pulses)
+            key = self._graph_key(lanes) if rows else None
+            if key is not None and _plans_kept(self.device):
+                if _graphs.get(key) is None:
+                    _capture(key)
+            else:
+                self._render_dispatch(
+                    [(ones, ones, 0.0, 0, 0, half + k, 0, 0, 0.0)
+                     for k in range(lanes)]).wait()
         return self
 
     @property
